@@ -3,7 +3,9 @@
 Port of ``cqs_tpu/daemon/batcher.py`` (the socket server and dispatch are
 not ported yet). Concurrent default searches (no filters) collect for up to
 ``daemon_batch_window_ms`` or ``daemon_max_batch`` entries, embed as one
-batch and run ONE ``hybrid_query_batch`` on the engine's device; hydration
+batch and run ONE device program on the engine's device
+(``hybrid_query_batch``, or the engine's int8 program when ``scan_q8``
+selects one, as on the solo path); hydration
 and scoring fan back out per query through the engine's shared host stage,
 so a batched query returns what the solo path returns.
 """
@@ -213,15 +215,20 @@ class QueryBatcher:
         q_ids_t, q_w_t = trim_query_terms(q_ids_b, q_w_b)
         valid = index.mask if code is None else eng._device_code_valid(index, code)
         dev = eng.device
-        fused, rows, d_leg, s_leg = hybrid_query_batch(
-            index.matrix, eng.sparse.packed_terms(), None, eng.sparse.sketch, valid,
-            torch.from_numpy(np.asarray(q_dense, np.float32)).to(dev),
-            torch.from_numpy(np.ascontiguousarray(q_ids_t)).to(dev),
-            torch.from_numpy(np.ascontiguousarray(q_w_t, np.float32)).to(dev),
-            torch.from_numpy(alphas).to(dev), pool, eng.sparse.vocab_size,
-            sketch_candidates=eng._sketch_candidates(None),
-            extraction=bf16_extraction(index.capacity, B, eng.lim.scan_extraction,
-                                       eng.lim.scan_q8_min_rows))
+        queries = (torch.from_numpy(np.asarray(q_dense, np.float32)).to(dev),
+                   torch.from_numpy(np.ascontiguousarray(q_ids_t)).to(dev),
+                   torch.from_numpy(np.ascontiguousarray(q_w_t, np.float32)).to(dev),
+                   torch.from_numpy(alphas).to(dev))
+        q8 = eng._q8_arrays(index) if eng._sketch_candidates(None) else None
+        if q8 is not None:
+            fused, rows, d_leg, s_leg = eng._q8_query(index, q8, valid, *queries, pool)
+        else:
+            fused, rows, d_leg, s_leg = hybrid_query_batch(
+                index.matrix, eng.sparse.packed_terms(), None, eng.sparse.sketch, valid,
+                *queries, pool, eng.sparse.vocab_size,
+                sketch_candidates=eng._sketch_candidates(None),
+                extraction=bf16_extraction(index.capacity, B, eng.lim.scan_extraction,
+                                           eng.lim.scan_q8_min_rows))
         fused, rows = fused[:B].cpu().numpy(), rows[:B].cpu().numpy()
         d_leg, s_leg = d_leg[:B].cpu().numpy(), s_leg[:B].cpu().numpy()
         device_ms = (time.perf_counter() - t0) * 1e3

@@ -7,8 +7,9 @@ to ``index_pad_multiple`` for append headroom. Mutations build new tensors
 and rebind them, so a reader holding the old tensors (and the caches keyed
 on tensor identity) never sees a half-applied update. The npz, stamp and
 checksum formats are the reference's, so either package loads the other's
-files. Not ported yet: the int8/projection screens (``_build_screen``,
-``project_query``) and ``dense_i8``.
+files. ``dense_i8`` and the B=1 screen (int8 or projection,
+``_build_screen``/``project_query``) are derived on the device and never
+persisted.
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ class DenseIndex:
                       else np.zeros((0, self.dim), np.float32))
         self._ids_digest: str | None = None
         self._row_map: dict[str, int] | None = None
+        self._i8_cache: tuple[torch.Tensor, torch.Tensor] | None = None
         self._upload()
 
     # -- device state ------------------------------------------------------
@@ -78,6 +80,70 @@ class DenseIndex:
                 mask[i] = 0
         matrix = torch.from_numpy(padded).to(device=self.device, dtype=self._dtype)
         self.matrix, self.mask = matrix, torch.from_numpy(mask).to(self.device)
+        self._build_screen()
+
+    def _build_screen(self) -> None:
+        """The dense screen of the screened B=1 program (``screen_*`` knobs,
+        ``dense.py:84``), built when ``screen_enable`` is set and the
+        capacity reaches ``screen_min_rows``, on every device. int8 mode:
+        the matrix quantized to round(x * 127), every dim kept. proj mode
+        (rows wider than ``screen_dim``): ``matrix @ P`` with P the
+        reference's seeded orthonormal [D, screen_dim] projection (numpy QR),
+        one f32 matmul (TF32 off: PyTorch's default, which the program
+        module also sets), stored in the matrix dtype."""
+        lim = default_limits
+        self.screen: torch.Tensor | None = None
+        self._screen_proj: np.ndarray | None = None
+        self._screen_mode: str | None = None
+        if not lim.screen_enable or self.capacity < lim.screen_min_rows:
+            return
+        if lim.screen_mode == "int8":
+            self.screen = self._int8_copy()
+            self._screen_mode = "int8"
+            return
+        if self.dim <= lim.screen_dim:
+            return
+        sd = int(lim.screen_dim)
+        rng = np.random.default_rng(0xC95C + self.dim * 131 + sd)
+        q, _ = np.linalg.qr(rng.standard_normal((self.dim, sd)).astype(np.float32))
+        self._screen_proj = np.ascontiguousarray(q, dtype=np.float32)
+        self._screen_mode = "proj"
+        proj = torch.from_numpy(self._screen_proj).to(self.device)
+        self.screen = (self.matrix.float() @ proj).to(self._dtype)
+
+    def _int8_copy(self) -> torch.Tensor:
+        """``quantize_unit`` of the matrix in row chunks (bounds the f32
+        widening transient: a whole-array cast at 1M x 768 is ~3 GB)."""
+        from cqs_tpu_torch.search.program import quantize_unit
+
+        chunk = 131072
+        return torch.cat([quantize_unit(self.matrix[i:i + chunk])
+                          for i in range(0, self.capacity, chunk)])
+
+    def dense_i8(self) -> torch.Tensor:
+        """[capacity, D] int8 copy of the matrix for the q8 program
+        (``dense.py:122``): round(x * 127) of the unit-norm rows, a monotone
+        per-query rescale of the dot for selection only. The int8 screen when
+        there is one; otherwise quantized in row chunks and cached on the
+        identity of ``matrix`` (appends rebind it; removals only mask rows,
+        which the copy does not hold)."""
+        if self.screen is not None and self._screen_mode == "int8":
+            return self.screen
+        c = self._i8_cache
+        if c is not None and c[0] is self.matrix:
+            return c[1]
+        q8 = self._int8_copy()
+        self._i8_cache = (self.matrix, q8)
+        return q8
+
+    def project_query(self, q: np.ndarray) -> np.ndarray | None:
+        """q [D] f32 -> the screen-space query (None without a screen): q
+        itself for int8 mode, its projection for proj mode."""
+        if self.screen is None:
+            return None
+        if self._screen_mode == "int8":
+            return np.asarray(q, np.float32)
+        return np.asarray(q, np.float32) @ self._screen_proj
 
     @property
     def count(self) -> int:
@@ -149,6 +215,14 @@ class DenseIndex:
                 matrix[n0:n1] = torch.from_numpy(vecs).to(self.device, self._dtype)
                 mask = self.mask.clone()
                 mask[n0:n1] = 1
+                if self.screen is not None:
+                    # keep the screen coherent with the appended rows, from
+                    # the f32 rows as the reference does
+                    upd = (np.clip(np.round(vecs * 127.0), -127, 127)
+                           if self._screen_mode == "int8" else vecs @ self._screen_proj)
+                    screen = self.screen.clone()
+                    screen[n0:n1] = torch.from_numpy(upd).to(self.device, screen.dtype)
+                    self.screen = screen
                 self.matrix, self.mask = matrix, mask
             else:
                 self._upload()

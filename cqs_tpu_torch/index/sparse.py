@@ -5,8 +5,10 @@ Port of ``cqs_tpu/index/sparse.py``. Each document keeps its top-T
 [N_pad, S]`` for the candidate scan and an int32 ``mask``, on an explicit
 device. :meth:`SpladeIndex.packed_terms` joins ids and weight bits into one
 [N_pad, 2T] int32 tensor for the rescore gather. npz/stamp/checksum formats
-are the reference's. Not ported yet: ``sketch_i8``, ``sketch_mini`` and the
-host CSR view (the port has no host serving path).
+are the reference's. :meth:`SpladeIndex.sketch_i8` (int8 sketch of the q8
+and sk8 programs) and :meth:`SpladeIndex.sketch_mini` (folded sketch of the
+screened program) are derived on the device and never persisted. Not ported:
+the host CSR view (the port has no host serving path).
 """
 
 from __future__ import annotations
@@ -46,6 +48,8 @@ class SpladeIndex:
         self._lock = threading.Lock()
         self._ids_digest: str | None = None
         self._packed: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._i8_cache: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._mini_cache: tuple[torch.Tensor, int, torch.Tensor] | None = None
         self._upload()
 
     def _upload(self) -> None:
@@ -82,6 +86,30 @@ class SpladeIndex:
         packed = pack_terms(self.doc_ids, self.doc_w)
         self._packed = (self.doc_ids, packed)
         return packed
+
+    def sketch_i8(self) -> torch.Tensor:
+        """[N_pad, S] int8 copy of the sketch (``program.quantize_sketch``),
+        cached on the identity of ``sketch`` (appends rebind it)."""
+        from cqs_tpu_torch.search.program import quantize_sketch
+
+        c = self._i8_cache
+        if c is not None and c[0] is self.sketch:
+            return c[1]
+        q8 = quantize_sketch(self.sketch)
+        self._i8_cache = (self.sketch, q8)
+        return q8
+
+    def sketch_mini(self, mini_dim: int) -> torch.Tensor:
+        """[N_pad, mini_dim] folded sketch (``program.fold_sketch``), cached
+        on the identity of ``sketch`` and the width."""
+        from cqs_tpu_torch.search.program import fold_sketch
+
+        c = self._mini_cache
+        if c is not None and c[0] is self.sketch and c[1] == mini_dim:
+            return c[2]
+        mini = fold_sketch(self.sketch, mini_dim)
+        self._mini_cache = (self.sketch, mini_dim, mini)
+        return mini
 
     @property
     def count(self) -> int:

@@ -91,10 +91,12 @@ def load() -> ctypes.CDLL:
             _build(path)
         lib = ctypes.CDLL(str(path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.cqs_scan_topk_loop_bf16, lib.cqs_scan_topk_grouped_bf16):
-            fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
-            fn.restype = ci
-        lib.cqs_scan_smem_bytes.argtypes = [ci, ci, ci]
+        for kind in ("bf16", "i8", "i8w"):
+            for body in ("loop", "grouped"):
+                fn = getattr(lib, f"cqs_scan_topk_{body}_{kind}")
+                fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+                fn.restype = ci
+        lib.cqs_scan_smem_bytes.argtypes = [ci, ci, ci, ci]
         lib.cqs_scan_smem_bytes.restype = ctypes.c_size_t
         _lib = lib
         return lib

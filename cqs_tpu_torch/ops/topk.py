@@ -7,8 +7,12 @@ Port of ``cqs_tpu/ops/topk.py``. Two layers:
   :func:`scan_topk_plain_loop` and :func:`scan_topk_plain_grouped`, on
   ``[num_tiles, B, m]`` outputs, plus the stage-2 merge :func:`merge_tiles`.
 - :func:`scan_topk`, the twin of ``topk_pallas``: on a CUDA tensor it
-  launches the hand-written kernel (``csrc/scan_topk.cu``, through
-  :data:`LOOP` / :data:`GROUPED`); on a CPU tensor it runs the plain version.
+  launches the hand-written kernel (``csrc/scan_topk.cu``) of the
+  extraction and of the (rows, query) dtype pair, as the reference's kernel
+  bodies branch on them: bf16 x bf16 (:data:`LOOP` / :data:`GROUPED`), int8
+  x int8 (:data:`LOOP_I8` / :data:`GROUPED_I8`) and int8 rows widened
+  against a bf16 query (:data:`LOOP_I8W` / :data:`GROUPED_I8W`). On a CPU
+  tensor it runs the plain version.
 
 Stage 2 is the exact stable top-k, which is what the reference computes off
 the TPU and in interpret mode (the TPU-only ``approx_max_k`` is not ported).
@@ -28,11 +32,42 @@ GROUP_LANES = 128
 _SMEM_LIMIT = 227 * 1024 - 1024
 
 
+#: rows of the int8 twin's float64 product taken at a time (bounds the
+#: widened copy at 1 GB for 1024-wide rows)
+_I8_CHUNK = 131072
+
+
+def scan_query(index: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """The query as the scan takes it against ``index`` (the dtype rule of
+    ``topk_pallas``): an int8 query against int8 rows stays int8; a float
+    query against int8 rows becomes bf16, the widening kernel's query type,
+    and is never cast to int8 (that would zero a unit-norm query); against
+    float rows the query takes the rows' dtype, as ``topk_xla`` and every
+    program call site do."""
+    if index.dtype == torch.int8:
+        if queries.dtype == torch.int8:
+            return queries
+        if queries.is_floating_point():
+            return queries.to(torch.bfloat16)
+        raise TypeError(f"{queries.dtype} query against int8 rows")
+    return queries.to(index.dtype)
+
+
 def _scores(index: torch.Tensor, queries: torch.Tensor,
             mask: torch.Tensor | None) -> torch.Tensor:
-    """[B, N] f32 scores (products of the stored values, summed in f32),
-    masked rows at NEG."""
-    s = queries.to(index.dtype).float() @ index.float().T
+    """[B, N] f32 scores, masked rows at NEG. int8 x int8: the exact integer
+    dot cast to f32 (``topk.py:73-75``). Torch has no integer matmul on
+    CUDA and an f32 product of int8 values is exact only while |sum| < 2^24,
+    so the twin multiplies in float64 on every device (|sum| <= 127^2 * D
+    < 2^53, exact) and then casts. Otherwise: products of the stored values
+    (int8 rows widen exactly), summed in f32."""
+    queries = scan_query(index, queries)
+    if index.dtype == torch.int8 and queries.dtype == torch.int8:
+        q64 = queries.double()
+        s = torch.cat([(q64 @ index[i:i + _I8_CHUNK].double().T).float()
+                       for i in range(0, index.shape[0], _I8_CHUNK)], dim=1)
+    else:
+        s = queries.float() @ index.float().T
     if mask is not None:
         s = torch.where(mask[None, :] > 0, s, torch.full_like(s, NEG))
     return s
@@ -123,13 +158,22 @@ def check_geometry(n: int, tile_n: int, m: int, grouped: bool) -> None:
                          f"(tile {tile_n}, m {m})")
 
 
+#: (rows dtype, query dtype) -> row kind of the kernels
+ROW_KINDS = {(torch.bfloat16, torch.bfloat16): "bf16", (torch.int8, torch.int8): "i8",
+             (torch.int8, torch.bfloat16): "i8w"}
+#: row kind -> the ``kind`` argument of ``cqs_scan_smem_bytes``
+_KIND_ABI = {"bf16": 0, "i8": 1, "i8w": 2}
+
+
 def check_kernel_args(index: torch.Tensor, queries: torch.Tensor,
                       mask: torch.Tensor, tile_n: int, m: int,
-                      grouped: bool) -> None:
-    """Raise on anything the CUDA kernels do not take."""
-    if index.dtype != torch.bfloat16 or queries.dtype != torch.bfloat16:
-        raise TypeError(f"scan kernels take bf16 rows and queries, got "
-                        f"{index.dtype} and {queries.dtype}")
+                      grouped: bool) -> str:
+    """Raise on anything the CUDA kernels do not take; return the row kind
+    of the (rows, query) dtype pair."""
+    kind = ROW_KINDS.get((index.dtype, queries.dtype))
+    if kind is None:
+        raise TypeError(f"no scan kernel for {index.dtype} rows and a {queries.dtype} "
+                        f"query (bf16 x bf16, int8 x int8, int8 x bf16)")
     if mask.dtype != torch.int32:
         raise TypeError(f"mask must be int32, got {mask.dtype}")
     if index.dim() != 2 or queries.dim() != 2 or mask.dim() != 1:
@@ -138,8 +182,9 @@ def check_kernel_args(index: torch.Tensor, queries: torch.Tensor,
     if queries.shape[1] != d or mask.shape[0] != n or queries.shape[0] < 1:
         raise ValueError(f"shape mismatch: index {tuple(index.shape)}, queries "
                          f"{tuple(queries.shape)}, mask {tuple(mask.shape)}")
-    if d % 8 or d > MAX_DIM:
-        raise ValueError(f"row width {d} must be a multiple of 8 and <= {MAX_DIM}")
+    vec = 16 // index.element_size()          # values per 16-byte load
+    if d % vec or d > MAX_DIM:
+        raise ValueError(f"row width {d} must be a multiple of {vec} and <= {MAX_DIM}")
     check_geometry(n, tile_n, m, grouped)
     if not (index.is_contiguous() and queries.is_contiguous() and mask.is_contiguous()):
         raise ValueError("scan kernels take contiguous tensors")
@@ -147,15 +192,18 @@ def check_kernel_args(index: torch.Tensor, queries: torch.Tensor,
         raise ValueError("index rows must be 16-byte aligned")
     if not (index.device == queries.device == mask.device):
         raise ValueError("index, queries and mask must share one device")
+    return kind
 
 
 class ScanKernel:
-    """One hand-written CUDA scan kernel. ``launches`` counts the times this
-    wrapper launched it (and nothing else)."""
+    """One hand-written CUDA scan kernel: one extraction over one row kind.
+    ``launches`` counts the times this wrapper launched it (and nothing
+    else)."""
 
-    def __init__(self, name: str, symbol: str, grouped: bool, replaces: str):
+    def __init__(self, name: str, kind: str, grouped: bool, replaces: str):
         self.name = name
-        self.symbol = symbol
+        self.kind = kind
+        self.symbol = f"cqs_scan_topk_{'grouped' if grouped else 'loop'}_{kind}"
         self.grouped = grouped
         self.replaces = replaces
         self.source = "cqs_tpu_torch/csrc/scan_topk.cu"
@@ -167,14 +215,20 @@ class ScanKernel:
 
         if not index.is_cuda:
             raise ValueError(f"{self.name} launches on CUDA tensors only")
-        check_kernel_args(index, queries, mask, tile_n, m, self.grouped)
+        kind = check_kernel_args(index, queries, mask, tile_n, m, self.grouped)
+        if kind != self.kind:
+            raise TypeError(f"{self.name} takes {self.kind} rows, got {kind}")
         lib = _kernels.load()
         n, d = index.shape
         b = queries.shape[0]
+
+        def smem(qb):
+            return lib.cqs_scan_smem_bytes(_KIND_ABI[kind], qb, d, tile_n)
+
         qb = 8
-        while qb > 1 and (qb >= 2 * b or lib.cqs_scan_smem_bytes(qb, d, tile_n) > _SMEM_LIMIT):
+        while qb > 1 and (qb >= 2 * b or smem(qb) > _SMEM_LIMIT):
             qb //= 2
-        if lib.cqs_scan_smem_bytes(qb, d, tile_n) > _SMEM_LIMIT:
+        if smem(qb) > _SMEM_LIMIT:
             raise ValueError(f"tile {tile_n} x width {d} exceeds shared memory")
         vals = torch.empty((n // tile_n, b, m), dtype=torch.float32, device=index.device)
         rows = torch.empty((n // tile_n, b, m), dtype=torch.int32, device=index.device)
@@ -189,11 +243,20 @@ class ScanKernel:
         return vals, rows
 
 
-LOOP = ScanKernel("scan_topk_loop", "cqs_scan_topk_loop_bf16", grouped=False,
+LOOP = ScanKernel("scan_topk_loop", "bf16", grouped=False,
                   replaces="cqs_tpu/ops/topk.py:58")
-GROUPED = ScanKernel("scan_topk_grouped", "cqs_scan_topk_grouped_bf16", grouped=True,
+GROUPED = ScanKernel("scan_topk_grouped", "bf16", grouped=True,
                      replaces="cqs_tpu/ops/topk.py:183")
-KERNELS = (LOOP, GROUPED)
+LOOP_I8 = ScanKernel("scan_topk_loop_i8", "i8", grouped=False,
+                     replaces="cqs_tpu/ops/topk.py:69")
+GROUPED_I8 = ScanKernel("scan_topk_grouped_i8", "i8", grouped=True,
+                        replaces="cqs_tpu/ops/topk.py:206")
+LOOP_I8W = ScanKernel("scan_topk_loop_i8w", "i8w", grouped=False,
+                      replaces="cqs_tpu/ops/topk.py:76")
+GROUPED_I8W = ScanKernel("scan_topk_grouped_i8w", "i8w", grouped=True,
+                         replaces="cqs_tpu/ops/topk.py:210")
+KERNELS = (LOOP, GROUPED, LOOP_I8, GROUPED_I8, LOOP_I8W, GROUPED_I8W)
+_BY_KIND = {(k.kind, k.grouped): k for k in KERNELS}
 
 
 def scan_topk(index: torch.Tensor, queries: torch.Tensor, k: int,
@@ -203,7 +266,8 @@ def scan_topk(index: torch.Tensor, queries: torch.Tensor, k: int,
     padded to a multiple of ``tile_n``; ``mask`` marks valid rows.
     ``per_tile_k`` < k makes it candidate generation; ``extraction`` picks
     the in-tile reduction ("loop": exact per-tile top-m, "grouped": top-m
-    groups of tile_n/128 rows). Queries are cast to the index dtype.
+    groups of tile_n/128 rows). The query dtype follows :func:`scan_query`;
+    on CUDA a (rows, query) pair with no kernel raises.
     Returns (vals [B, k] f32, rows [B, k] int32)."""
     if extraction not in ("loop", "grouped"):
         raise ValueError(f"unknown extraction {extraction!r}")
@@ -213,11 +277,14 @@ def scan_topk(index: torch.Tensor, queries: torch.Tensor, k: int,
     check_geometry(n, tile_n, m, grouped)
     if mask is None:
         mask = torch.ones(n, dtype=torch.int32, device=index.device)
-    queries = queries.to(index.dtype)
+    queries = scan_query(index, queries)
     if index.is_cuda:
-        vals, rows = (GROUPED if grouped else LOOP)(index, queries.contiguous(),
-                                                    mask.to(torch.int32).contiguous(),
-                                                    tile_n, m)
+        kernel = _BY_KIND.get((ROW_KINDS.get((index.dtype, queries.dtype)), grouped))
+        if kernel is None:
+            raise TypeError(f"no scan kernel for {index.dtype} rows and a "
+                            f"{queries.dtype} query")
+        vals, rows = kernel(index, queries.contiguous(), mask.to(torch.int32).contiguous(),
+                            tile_n, m)
     elif grouped:
         vals, rows = scan_topk_plain_grouped(index, queries, mask, tile_n, m)
     else:

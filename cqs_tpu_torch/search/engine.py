@@ -4,13 +4,16 @@ Port of ``cqs_tpu/search/engine.py`` with the same method names. The host
 stages (classification, FTS legs, hydration, scoring, leg fusion and rescue)
 are the reference's code run over the shared router/scoring/store modules;
 what changes is the device side. Indexes live on the engine's explicit
-``device``, and ``_device_query`` runs the port's hybrid program
-(``search/program.py``) there. The reference's CPU-host BLAS branch has no
-counterpart: on the CPU the same device program runs with the plain scans.
+``device``, and ``_device_query`` runs the port's programs
+(``search/program.py``) there: the bf16 hybrid program, the int8 candidate
+programs (knob ``scan_q8``: 1 = q8, 2 = sk8) and the screened B=1 program
+(knob ``screen_enable``). The reference's CPU-host BLAS branch and its
+TPU-backend gates have no counterpart: on every device the same device
+program runs, on the CPU with the plain scans.
 
 Not on this slice (they raise or are absent): the worktree overlay, the
-ANN/graph tiers, mesh sharding, the int8 (q8/sk8) and screened programs,
-rerank, tiered serving and ``refresh_incremental``.
+ANN/graph tiers, mesh sharding, rerank, tiered serving and
+``refresh_incremental``.
 """
 
 from __future__ import annotations
@@ -39,7 +42,10 @@ from cqs_tpu.utils.trace import get_tracer, span
 from cqs_tpu_torch.device import resolve_device
 from cqs_tpu_torch.index import DenseIndex, SpladeIndex
 from cqs_tpu_torch.models import Embedder, SpladeEncoder
-from cqs_tpu_torch.search.program import dense_query, hybrid_query, trim_query_terms
+from cqs_tpu_torch.search.program import (
+    _scan_tile, dense_query, hybrid_query, hybrid_query_batch_q8, hybrid_query_batch_sk8,
+    hybrid_query_screened, trim_query_terms,
+)
 
 log = get_tracer("search")
 
@@ -49,8 +55,7 @@ SPLADE_FILE = "splade.npz"
 CENTROIDS_FILE = "classifier_centroids.json"
 
 #: knob -> value the slice supports; anything else is a path not yet ported
-_UNPORTED_KNOBS = {"index_kind": "exact", "mesh_shards": 0, "scan_q8": 0,
-                   "screen_enable": 0}
+_UNPORTED_KNOBS = {"index_kind": "exact", "mesh_shards": 0}
 
 
 def bf16_extraction(capacity: int, batch: int, knob: str = "grouped",
@@ -401,22 +406,45 @@ class SearchEngine:
                 fm = np.zeros(index.capacity, np.int32)
                 fm[: len(cmask)] = cmask
                 valid = valid * torch.from_numpy(fm).to(self.device)
-        q_t = torch.from_numpy(np.array(q_vec, np.float32)).to(self.device)
+        dev = self.device
+        q_t = torch.from_numpy(np.array(q_vec, np.float32)).to(dev)
         sparse_ok = (self.sparse is not None and alpha < 1.0
                      and self.sparse.capacity == index.capacity
                      and self.sparse.ids_digest == index.ids_digest)
         if sparse_ok:
             q_ids, q_w = self.splade.encode(query, is_query=True)
             q_ids2, q_w2 = trim_query_terms(q_ids[None], q_w[None])
-            fused, rows, d_leg, s_leg = hybrid_query(
-                index.matrix, self.sparse.packed_terms(), None, self.sparse.sketch,
-                valid, q_t, torch.from_numpy(q_ids2[0]).to(self.device),
-                torch.from_numpy(q_w2[0]).to(self.device), alpha, pool,
-                self.sparse.vocab_size, sketch_candidates=self._sketch_candidates(fmask),
-                extraction=bf16_extraction(index.capacity, 1, self.lim.scan_extraction,
-                                           self.lim.scan_q8_min_rows))
-            return (fused.cpu().numpy(), rows.cpu().numpy(), d_leg.cpu().numpy(),
-                    s_leg.cpu().numpy())
+            ids_t = torch.from_numpy(q_ids2).to(dev)
+            w_t = torch.from_numpy(q_w2).to(dev)
+            alphas = torch.tensor([alpha], dtype=torch.float32, device=dev)
+            q_screen = index.project_query(q_vec)
+            screened = (q_screen is not None and index.capacity % 1024 == 0
+                        and self.sparse.sketch_dim % self.lim.screen_dim == 0)
+            q8 = (self._q8_arrays(index)
+                  if not screened and self._sketch_candidates(fmask) else None)
+            if screened:
+                # the two-pass screened B=1 program (screen_enable)
+                q_scr = torch.from_numpy(np.array(q_screen, np.float32)).to(dev)
+                out = hybrid_query_screened(
+                    index.matrix, index.screen, self.sparse.packed_terms(), None,
+                    self.sparse.sketch_mini(self.lim.screen_dim), valid, q_t[None],
+                    q_scr[None], ids_t, w_t, alphas, pool,
+                    min(self.lim.screen_k, index.capacity), self.sparse.vocab_size,
+                    self.sparse.sketch_dim // self.lim.screen_dim,
+                    self.lim.screen_sparse_mult)
+            elif q8 is not None:
+                # the int8 program at B=1: the one the batcher runs, so solo
+                # == batched holds by construction
+                out = self._q8_query(index, q8, valid, q_t[None], ids_t, w_t, alphas, pool)
+            else:
+                out = hybrid_query(
+                    index.matrix, self.sparse.packed_terms(), None, self.sparse.sketch,
+                    valid, q_t, ids_t[0], w_t[0], alpha, pool,
+                    self.sparse.vocab_size, sketch_candidates=self._sketch_candidates(fmask),
+                    extraction=bf16_extraction(index.capacity, 1, self.lim.scan_extraction,
+                                               self.lim.scan_q8_min_rows))
+                out = tuple(x[None] for x in out)
+            return tuple(x[0].cpu().numpy() for x in out)
         vals, rows = dense_query(index.matrix, valid, q_t, pool)
         vals = vals.cpu().numpy()
         return vals, rows.cpu().numpy(), vals, None
@@ -1120,6 +1148,36 @@ class SearchEngine:
         if self.lim.sketch_leg == 0 and fmask is None:
             return False
         return True
+
+    def _q8_arrays(self, index: DenseIndex):
+        """(mode, dense_i8, sketch_i8) when an int8 candidate program serves
+        ``index``, else None (``engine.py:1319``). Modes: 1 = q8 (both scans
+        int8), 2 = sk8 (int8 sketch scan only; no dense int8 copy is built).
+        Gates: the ``scan_q8`` knob, a sparse index, capacity >=
+        ``scan_q8_min_rows``, a capacity that tiles; the caller adds the
+        sketch-leg gate. There is no backend gate: the program runs on every
+        device. The arrays are identity-keyed caches on the indexes."""
+        if (not self.lim.scan_q8 or self.sparse is None
+                or index.capacity < self.lim.scan_q8_min_rows
+                or _scan_tile(index.capacity) is None):
+            return None
+        mode = int(self.lim.scan_q8)
+        return mode, (index.dense_i8() if mode != 2 else None), self.sparse.sketch_i8()
+
+    def _q8_query(self, index: DenseIndex, q8, valid, q_dense_b, q_ids_t, q_w_t,
+                  alphas_b, pool: int):
+        """One batched int8 candidate query, shared by the solo path and the
+        batcher (``engine.py:1343``). Both programs take the
+        ``scan_extraction`` knob at every batch size."""
+        mode, dense_i8, sk_i8 = q8
+        packed = self.sparse.packed_terms()
+        if mode == 2:
+            return hybrid_query_batch_sk8(
+                index.matrix, packed, None, sk_i8, valid, q_dense_b, q_ids_t, q_w_t,
+                alphas_b, pool, self.sparse.vocab_size, extraction=self.lim.scan_extraction)
+        return hybrid_query_batch_q8(
+            index.matrix, dense_i8, packed, None, sk_i8, valid, q_dense_b, q_ids_t, q_w_t,
+            alphas_b, pool, self.sparse.vocab_size, extraction=self.lim.scan_extraction)
 
     def _pick_dense_index(self, cls: Classification) -> DenseIndex | None:
         """Adaptive dual-index routing (ref: SearchStrategy::DenseBase +

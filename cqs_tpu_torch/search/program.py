@@ -1,4 +1,4 @@
-"""The hybrid query program: dense + sketch candidate scans, exact sparse
+"""The hybrid query programs: dense + sketch candidate scans, exact sparse
 rescore, min-max + alpha fusion, dedup and the final top-pool.
 
 Port of ``cqs_tpu/search/program.py``. The reference compiles one XLA
@@ -9,6 +9,10 @@ device: the two fused scans go through :func:`~cqs_tpu_torch.ops.topk.scan_topk`
 (the CUDA kernels on the card, their plain twins on the CPU). Below two tiles
 it runs the reference's exact branch, materialising [B, N] scores with an f32
 ``matmul``, as the TPU does for small corpora.
+
+The int8 programs (:func:`hybrid_query_batch_q8`, :func:`hybrid_query_batch_sk8`
+and the screened B=1 program :func:`hybrid_query_screened`) always scan, as
+the reference does; their int8 scans go through the int8 kernels.
 
 f32 products are taken with TF32 off (``torch.backends.cuda.matmul.allow_tf32
 = False`` is set where this module is imported): the bf16 rows and queries
@@ -76,6 +80,13 @@ def _query_sketch(q_ids: torch.Tensor, q_w: torch.Tensor, S: int) -> torch.Tenso
     return query_sketch(q_ids, q_w, S)
 
 
+def _gather_dot(matrix: torch.Tensor, rows: torch.Tensor, q_mat: torch.Tensor) -> torch.Tensor:
+    """[B, C] exact dense scores of the candidate rows: gather [B, C, D] and
+    take the f32 dot with the matrix-dtype query (never a bf16 matmul: its
+    output would round to bf16)."""
+    return torch.bmm(matrix[rows.long()].float(), q_mat.float().unsqueeze(2)).squeeze(2)
+
+
 def _scan_candidates(matrix, sketch, valid_mask, q_mat, q_sk, pool: int,
                      tile: int, extraction: str):
     """The reference's TPU branch: (candidate rows [B, C], exact dense
@@ -88,10 +99,7 @@ def _scan_candidates(matrix, sketch, valid_mask, q_mat, q_sk, pool: int,
     _, sc = _fused_candidates(sketch, q_sk, valid_mask, pool, tile_n=tile,
                               extraction=extraction)
     rows = torch.cat([dc, sc], dim=1)
-    # never a bf16 matmul: its output would round to bf16
-    d_sketch_half = torch.bmm(matrix[sc.long()].float(),
-                              q_mat.float().unsqueeze(2)).squeeze(2)
-    return rows, torch.cat([dv, d_sketch_half], dim=1)
+    return rows, torch.cat([dv, _gather_dot(matrix, sc, q_mat)], dim=1)
 
 
 def _exact_candidates(matrix, sketch, valid_mask, q_mat, q_sk, pool: int):
@@ -226,3 +234,176 @@ def trim_query_terms(q_ids, q_w, buckets=(8, 16, 32, 64, 128, 256, 512, 1024)):
         if nnz <= b:
             return np.asarray(q_ids)[:, :min(b, qt)], q_w[:, :min(b, qt)]
     return np.asarray(q_ids), q_w
+
+
+# -- int8 programs -------------------------------------------------------------
+
+def quantize_unit(x: torch.Tensor) -> torch.Tensor:
+    """int8 copy of unit-norm rows or queries: round(x * 127) clipped to
+    [-127, 127] (``program.py:370``, ``dense.py:104``). ``torch.round``
+    rounds half to even, as ``jnp.round``."""
+    return torch.clamp(torch.round(x.float() * 127.0), -127, 127).to(torch.int8)
+
+
+def _div127(x: torch.Tensor) -> torch.Tensor:
+    """127 / max(x, 1e-6) in f32 as a true division (``127.0 / tensor``
+    would take a reciprocal and multiply, one rounding more)."""
+    x = torch.maximum(x, torch.tensor(1e-6, dtype=torch.float32, device=x.device))
+    return torch.full_like(x, 127.0) / x
+
+
+def _quantize_query_sketch(q_sk: torch.Tensor) -> torch.Tensor:
+    """[B, S] f32 query sketch -> int8 with a per-query scale
+    ``127 / max(max|q_sk|, 1e-6)``, multiplied in (``program.py:378-380``)."""
+    scale = _div127(q_sk.abs().amax(dim=1, keepdim=True))
+    return torch.clamp(torch.round(q_sk * scale), -127, 127).to(torch.int8)
+
+
+def quantile_linear(x: torch.Tensor, q: float) -> torch.Tensor:
+    """``jnp.quantile(x, q)`` (linear interpolation) of the flattened f32
+    ``x``, as the reference computes it: position q * (n - 1), its floor and
+    ceiling and the weights w and 1 - w in f32, then low * (1 - w) + high * w,
+    which XLA on the CPU contracts, inside ``quantize_sketch``'s jitted
+    program, into one fused multiply-add, fma(low, 1 - w, high * w). The fma
+    is taken in float64, where the product is exact, and rounded once to
+    f32. Sort-based, so it takes any size (``torch.quantile`` refuses
+    more than 2^24 elements, which a sample of a capacity just over 1M rows
+    exceeds). Returns a 0-d f32 tensor on ``x``'s device."""
+    a = torch.sort(x.reshape(-1).float()).values
+    n = a.numel()
+    pos = np.float32(q) * np.float32(n - 1)
+    low, high = np.floor(pos), np.ceil(pos)
+    w_hi = np.float32(pos - low)
+    w_lo = np.float32(np.float32(1.0) - w_hi)
+    lo_v = np.float32(a[int(np.clip(low, 0, n - 1))].item())
+    hi_v = np.float32(a[int(np.clip(high, 0, n - 1))].item())
+    val = np.float32(np.float64(lo_v) * np.float64(w_lo) + np.float64(hi_v * w_hi))
+    return torch.tensor(val, dtype=torch.float32, device=a.device)
+
+
+def quantize_sketch(sketch: torch.Tensor) -> torch.Tensor:
+    """[N, S] bf16 count-sketch -> int8 copy for the int8 sketch scan
+    (``program.py:465``): one global scale from the 0.9999 quantile of |value|
+    over a strided <= 16k-row sample, clipping the heavy tail (clipped buckets
+    saturate high, so the rows they dominate stay selected). Quantized in
+    row chunks so the f32 widening stays ~0.5 GB at 1M x 1024."""
+    n = sketch.shape[0]
+    stride = max(1, n // 16384)
+    scale = _div127(quantile_linear(sketch[::stride].float().abs(), 0.9999))
+    chunk = 131072
+    return torch.cat([torch.clamp(torch.round(sketch[i:i + chunk].float() * scale),
+                                  -127, 127).to(torch.int8)
+                      for i in range(0, n, chunk)])
+
+
+def _require_tile(n: int, program: str) -> int:
+    tile = _scan_tile(n)
+    if tile is None:
+        raise ValueError(f"{program} needs at least two scan tiles of 1024 or 2048 "
+                         f"rows, got {n} rows")
+    return tile
+
+
+def hybrid_query_batch_q8(matrix, dense_i8, doc_ids, doc_w, sketch_i8, valid_mask,
+                          q_dense, q_ids, q_w, alphas, pool: int, vocab_size: int,
+                          extraction: str = "grouped"):
+    """Quantized-candidate batched query (``program.py:338``, knob
+    ``scan_q8=1``): both candidate scans stream int8 copies (``dense_i8`` of
+    the unit-norm rows, ``sketch_i8`` from :func:`quantize_sketch`) against
+    int8 queries, so their values are rescaled and not reused: every dense
+    score of the union comes from a row gather and the f32 dot. The dense
+    query quantizes from the f32 ``q_dense``, not its bf16 cast. Solo
+    serving is B=1 of this, so solo == batched by construction."""
+    tile = _require_tile(dense_i8.shape[0], "hybrid_query_batch_q8")
+    q_mat = q_dense.to(matrix.dtype)
+    _, dc = _fused_candidates(dense_i8, quantize_unit(q_dense), valid_mask, pool,
+                              tile_n=tile, extraction=extraction)
+    q_sk_i8 = _quantize_query_sketch(_query_sketch(q_ids, q_w, sketch_i8.shape[1]))
+    _, sc = _fused_candidates(sketch_i8, q_sk_i8, valid_mask, pool, tile_n=tile,
+                              extraction=extraction)
+    rows = torch.cat([dc, sc], dim=1)
+    return _exact_rescore_fuse(doc_ids, doc_w, valid_mask, q_ids, q_w, alphas, rows,
+                               _gather_dot(matrix, rows, q_mat), pool, vocab_size)
+
+
+def hybrid_query_batch_sk8(matrix, doc_ids, doc_w, sketch_i8, valid_mask, q_dense,
+                           q_ids, q_w, alphas, pool: int, vocab_size: int,
+                           extraction: str = "grouped"):
+    """Sketch-leg-quantized batched query (``program.py:393``, knob
+    ``scan_q8=2``): the dense scan stays bf16 and its values are reused as
+    the dense half's scores; only the sketch scan, whose values are never
+    reused, streams int8, at twice the tile when that tile still divides the
+    rows at least twice."""
+    n = matrix.shape[0]
+    tile = _require_tile(n, "hybrid_query_batch_sk8")
+    q_mat = q_dense.to(matrix.dtype)
+    dv, dc = _fused_candidates(matrix, q_mat, valid_mask, pool, tile_n=tile,
+                               extraction=extraction)
+    q_sk_i8 = _quantize_query_sketch(_query_sketch(q_ids, q_w, sketch_i8.shape[1]))
+    sk_tile = 2 * tile if (n % (2 * tile) == 0 and n // (2 * tile) >= 2) else tile
+    _, sc = _fused_candidates(sketch_i8, q_sk_i8, valid_mask, pool, tile_n=sk_tile,
+                              extraction=extraction)
+    rows = torch.cat([dc, sc], dim=1)
+    d_c = torch.cat([dv, _gather_dot(matrix, sc, q_mat)], dim=1)
+    return _exact_rescore_fuse(doc_ids, doc_w, valid_mask, q_ids, q_w, alphas, rows, d_c,
+                               pool, vocab_size)
+
+
+# -- the screened B=1 program -------------------------------------------------
+
+def _screen_tile(n: int, row_bytes: int, pool: int) -> int:
+    """Scan tile for the narrow screen arrays (``program.py:92``): the
+    largest of 16384..2048 rows that divides N, holds at most 4 MB of rows
+    and keeps the per-tile k (~2 * pool * tile / N) at most 16; else 1024."""
+    for t in (16384, 8192, 4096, 2048):
+        if (n % t == 0 and t * row_bytes <= (4 << 20)
+                and -(-2 * pool * t // max(n, 1)) <= 16):
+            return t
+    return _FUSED_TILE_FALLBACK
+
+
+def fold_sketch(sketch: torch.Tensor, mini_dim: int) -> torch.Tensor:
+    """Fold a [_, S] count-sketch to [_, mini_dim] (mini_dim | S): buckets
+    k, m+k, 2m+k, ... sum (in f32) into bucket k, itself a coarser
+    count-sketch of the same signed stream (``program.py:501``)."""
+    n, s = sketch.shape
+    if s % mini_dim:
+        raise ValueError(f"sketch width {s} is not a multiple of {mini_dim}")
+    return sketch.reshape(n, s // mini_dim, mini_dim).float().sum(dim=1).to(sketch.dtype)
+
+
+def hybrid_query_screened(matrix, screen, doc_ids, doc_w, sketch_mini, valid_mask,
+                          q_dense, q_screen, q_ids, q_w, alphas, pool: int,
+                          screen_k: int, vocab_size: int, sketch_fold: int = 8,
+                          sparse_mult: int = 4):
+    """Two-pass screened query, the B=1 program (``program.py:517``, knob
+    ``screen_enable``). Pass 1 scans narrow arrays: the dense screen (int8
+    mode: the int8 rows against the int8 query, whose top-pool is the dense
+    candidate set; proj mode: a bf16 [N, screen_dim] projection whose
+    top-``screen_k`` rows are rescored exactly and cut to the pool) and the
+    folded [N, S/fold] mini-sketch, oversampled ``sparse_mult`` times. Pass
+    2 is the shared exact tail over the union. ``q_screen`` [B, Sd] is
+    ``DenseIndex.project_query`` of the query."""
+    b = q_dense.shape[0]
+    n = screen.shape[0]
+    q_mat = q_dense.to(matrix.dtype)
+    if screen.dtype == torch.int8:
+        _, dc = _fused_candidates(screen, quantize_unit(q_screen), valid_mask, pool,
+                                  tile_n=_screen_tile(n, screen.shape[1], pool))
+        dv = _gather_dot(matrix, dc, q_mat)
+    else:
+        _, sc_rows = _fused_candidates(screen, q_screen.to(screen.dtype), valid_mask,
+                                       screen_k,
+                                       tile_n=_screen_tile(n, screen.shape[1] * 2, screen_k))
+        dv, dsel = stable_topk(_gather_dot(matrix, sc_rows, q_mat), pool)
+        dc = sc_rows.gather(1, dsel)
+    s_mini = sketch_mini.shape[1]
+    q_mini = _query_sketch(q_ids, q_w, s_mini * sketch_fold).reshape(
+        b, sketch_fold, s_mini).sum(dim=1).to(sketch_mini.dtype)
+    k_sp = pool * sparse_mult
+    _, sk_rows = _fused_candidates(sketch_mini, q_mini, valid_mask, k_sp,
+                                   tile_n=_screen_tile(n, s_mini * 2, k_sp))
+    rows = torch.cat([dc, sk_rows], dim=1)
+    d_c = torch.cat([dv, _gather_dot(matrix, sk_rows, q_mat)], dim=1)
+    return _exact_rescore_fuse(doc_ids, doc_w, valid_mask, q_ids, q_w, alphas, rows, d_c,
+                               pool, vocab_size)
