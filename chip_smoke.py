@@ -12,8 +12,11 @@ Phases, each fatal on error (non-zero exit, no result line):
    programs' shapes, with both times. bf16: row widths 256 and 1024, tile
    2048, B 1/8/128, m 4/16/64, 4096 and 1,048,576 rows. int8 x int8 and
    int8-widened: 1,048,576 rows of width 256 and 1024, tiles 2048 and 4096,
-   B 1/8/128, m 4/16, and tile 16384 x 256 at B=1. int8 x int8 must equal
-   its twin exactly, slot for slot; the others within a score near-tie;
+   B 1/8/128, m 4/16, and tile 16384 x 256 at B=1. The two tensor-core
+   grouped kernels also where an MMA design breaks: widths 24 (bf16) and 48
+   (int8), not multiples of 16 or of the 64-wide K-chunk, and 4096; B 3, 65
+   and 128; tiles 128 (one row a group) and 16384 (128). int8 x int8 must
+   equal its twin exactly, slot for slot; the others within a score near-tie;
 4. e2e: index a copy of this repository's sources through the port's CLI,
    answer searches through it and the engine, then a paused burst through
    the ``QueryBatcher`` whose results must equal the solo ones; once with
@@ -111,8 +114,9 @@ def compare_tiles(kernel, plain, index, q, mask, tile, m, label):
 
 
 def compare_exact(kernel, plain, index, q, mask, tile, m, label):
-    """int8 x int8 kernel vs plain: integer sums have no order, so values
-    and rows must be equal slot for slot. Returns max |err| (0.0)."""
+    """Kernel vs plain where every sum is exact (int8 x int8, or integer
+    values): sums have no order, so values and rows must be equal slot for
+    slot. Returns max |err| (0.0)."""
     import torch
 
     kv, kr = kernel(index, q, mask, tile, m)
@@ -120,7 +124,7 @@ def compare_exact(kernel, plain, index, q, mask, tile, m, label):
     torch.cuda.synchronize()
     if not (torch.equal(kv, pv) and torch.equal(kr, pr)):
         fail(f"{label}: {int((kv != pv).sum())} values and {int((kr != pr).sum())} rows "
-             f"differ from the plain twin (int8 x int8 must match exactly)")
+             f"differ from the plain twin (exact sums must match exactly)")
     return 0.0
 
 
@@ -232,6 +236,35 @@ def phase_kernels(torch, dev, rng, report):
             check(kernel, index, qbf, mask, tile, m, f"{kernel.name}/{name}")
     print("kernels: adversarial cases ok for all six kernels (mask, spread spikes, "
           "same-group collision, heavy mask, ties); int8 x int8 exact")
+    # the tensor-core grouped kernels where an MMA design breaks: K padded
+    # inside the last chunk, zero queries inside an n-tile and a second query
+    # block, one row a group and 128 rows a group. Then integer rows and
+    # queries, whose sums are exact in f32 in any order: slot for slot equal
+    # to the twin, through many ties and m 128 rounds that retire every group
+    # (near-zero random scores carry more f32 noise than ATOL in any order)
+    for kernel, widths in ((GROUPED, (24, 4096)), (GROUPED_I8W, (48, 4096))):
+        for d in widths:
+            n = 32768
+            gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+            if kernel is GROUPED:
+                index = torch.randn(n, d, device=dev, generator=gen).to(torch.bfloat16)
+                int_rows = torch.randint(-8, 9, (n, d), device=dev, generator=gen).to(
+                    torch.bfloat16)
+            else:
+                index = int_rows = torch.randint(-127, 128, (n, d), device=dev, generator=gen,
+                                                 dtype=torch.int8)
+            mask = (torch.rand(n, device=dev, generator=gen) > 0.02).to(torch.int32)
+            for b in (3, 65, 128):
+                label = f"{kernel.name} n={n} d={d} b={b}"
+                q = torch.randn(b, d, device=dev, generator=gen).to(torch.bfloat16)
+                for tile, m in ((128, 4), (128, 16), (16384, 16)):
+                    check(kernel, index, q, mask, tile, m, f"{label} tile={tile} m={m}")
+                q_int = torch.randint(-3, 4, (b, d), device=dev, generator=gen).to(torch.bfloat16)
+                for tile, m in ((128, 128), (16384, 16)):
+                    compare_exact(kernel, plain_of(kernel), int_rows, q_int, mask, tile, m,
+                                  f"{label} tile={tile} m={m} integer")
+    print("kernels: tensor-core grouped kernels ok at widths 24/48/4096, B 3/65/128, "
+          "tiles 128 and 16384; exact on integer inputs through m 128")
     for n in (4096, SCALE_ROWS):
         for d in (256, 1024):
             gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))

@@ -2,7 +2,8 @@
 
 A port of ``cqs_tpu`` (the JAX package, which stays the reference) to
 PyTorch, with the two Pallas scan kernels of the search path rewritten as
-CUDA C++ kernels for ``sm_90a`` (``csrc/scan_topk.cu``). Submodules mirror
+CUDA C++ kernels for ``sm_90a`` (``csrc/scan_topk.cu`` on CUDA cores,
+``csrc/scan_topk_mma.cu`` on tensor cores). Submodules mirror
 ``cqs_tpu``'s names so each ported file has a twin:
 
     cli/ daemon/        -- ``python -m cqs_tpu_torch index|<query>``, micro-batcher

@@ -1,17 +1,19 @@
-// Fused exact scan + per-tile top-m for Hopper (sm_90a).
+// Fused exact scan + per-tile top-m for Hopper (sm_90a), on CUDA cores.
 //
-// Replaces the two Pallas kernel bodies reached through
+// Replaces, of the two Pallas kernel bodies reached through
 // cqs_tpu/ops/topk.py::topk_pallas (pl.pallas_call at topk.py:145), each in
-// the three branches the reference picks by the dtypes of rows and query:
-//   - _scan_kernel          ("loop",    topk.py:58-108)
-//   - _scan_kernel_grouped  ("grouped", topk.py:183-255)
+// the branches the reference picks by the dtypes of rows and query:
+//   - _scan_kernel          ("loop",    topk.py:58-108), all three kinds;
+//   - _scan_kernel_grouped  ("grouped", topk.py:183-255), int8 x int8 only
+//     (the bf16 and int8-widened grouped branches are the tensor-core
+//     kernel in scan_topk_mma.cu);
 //   row kinds (template parameter KIND):
 //   - kBf16:    bf16 rows x bf16 query, f32 products and sums
-//               (topk.py:79-80, :213-214);
+//               (topk.py:79-80);
 //   - kI8:      int8 rows x int8 query -> int32 dot -> f32
 //               (topk.py:69-75, :206-209);
 //   - kI8Widen: int8 rows widened exactly to f32 x bf16 query, f32 sums
-//               (topk.py:76-78, :210-212).
+//               (topk.py:76-78).
 // For each logical row tile of tile_n rows and each query they compute
 // the scores, set masked rows to NEG, and reduce the tile to m
 // (value, global row) slots:
@@ -38,27 +40,18 @@
 // and independent of summation order; the f32 conversion happens once per
 // score. The selection rounds run on shared memory with each thread caching
 // the best of the columns it owns, so a round costs one group reduction plus
-// one owner rescan. No tensor cores (mma/wgmma s8), TMA or pipelining yet:
-// those are later optimisations.
+// one owner rescan. No tensor cores, TMA or pipelining here.
 //
 // Plain C ABI for ctypes: pointers and the stream as void*, returns
 // cudaGetLastError() (0 = launched).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "scan_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerIter = 4;
-constexpr int kLanes = 128;  // grouped extraction width
-constexpr float kNeg = -3.0e38f;
+using namespace cqs;
 
-// row kinds; the values are the ABI's `kind` argument
-constexpr int kBf16 = 0;
-constexpr int kI8 = 1;
-constexpr int kI8Widen = 2;
+constexpr int kRowsPerIter = 4;
 
 __host__ __device__ constexpr int vec_elems(int kind) { return kind == kBf16 ? 8 : 16; }
 // bytes of one query element in shared memory (int8 packed, else f32)
@@ -76,10 +69,6 @@ template <>
 struct Acc<kI8> {
   using T = int;
 };
-
-__device__ __forceinline__ bool better(float v1, int i1, float v2, int i2) {
-  return v1 > v2 || (v1 == v2 && i1 < i2);
-}
 
 __device__ __forceinline__ void warp_argmax(float& v, int& i) {
 #pragma unroll
@@ -170,19 +159,6 @@ __device__ __forceinline__ typename Acc<KIND>::T dot_vec(uint4 x, const unsigned
     return dot16_widen(x, reinterpret_cast<const float*>(qs) + elem);
   } else {
     return dot8(x, reinterpret_cast<const float*>(qs) + elem);
-  }
-}
-
-// Best (value, column) among the columns j = gt, gt+G, ... < L of s.
-__device__ __forceinline__ void local_best(const float* s, int L, int gt, int G,
-                                           float& v, int& i) {
-  v = -INFINITY;
-  i = 0x7fffffff;
-  for (int j = gt; j < L; j += G) {
-    if (better(s[j], j, v, i)) {
-      v = s[j];
-      i = j;
-    }
   }
 }
 
@@ -359,10 +335,8 @@ size_t cqs_scan_smem_bytes(int kind, int qb, int D, int tile_n) {
   }
 
 CQS_SCAN_ENTRY(cqs_scan_topk_loop_bf16, kBf16, false)
-CQS_SCAN_ENTRY(cqs_scan_topk_grouped_bf16, kBf16, true)
 CQS_SCAN_ENTRY(cqs_scan_topk_loop_i8, kI8, false)
 CQS_SCAN_ENTRY(cqs_scan_topk_grouped_i8, kI8, true)
 CQS_SCAN_ENTRY(cqs_scan_topk_loop_i8w, kI8Widen, false)
-CQS_SCAN_ENTRY(cqs_scan_topk_grouped_i8w, kI8Widen, true)
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 """Build and bind the CUDA kernels in ``cqs_tpu_torch/csrc``.
 
-The sources compile with ``nvcc`` for ``sm_90a`` into a shared library with a
-plain C interface, loaded with ``ctypes``. The build happens at first use, in
+Each source compiles with its own ``nvcc`` for ``sm_90a`` (all started
+together), and the objects link into one shared library with a plain C
+interface, loaded with ``ctypes``. The build happens at first use, in
 the process that launches a kernel (never at import: machines without
 ``nvcc`` import this module too), into ``cqs_tpu_torch/_build/<source hash>/``
 (listed in ``.gitignore``). A failed build raises; nothing falls back to the
@@ -22,9 +23,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("scan_topk.cu",)
+SOURCES = ("scan_topk.cu", "scan_topk_mma.cu")
+HEADERS = ("scan_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -46,7 +48,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.blake2b(digest_size=12)
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -57,6 +59,17 @@ def library_path() -> Path:
     return BUILD_DIR / _source_hash() / "libcqs_kernels.so"
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the output of the first
+    that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+
+
 def _build(out: Path) -> None:
     import time
 
@@ -65,15 +78,14 @@ def _build(out: Path) -> None:
     t0 = time.perf_counter()
     # build beside the target, then rename: a concurrent or interrupted
     # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[str(CSRC / s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        nvcc = _nvcc()
+        objs = [str(Path(tmp) / f"{Path(s).stem}.o") for s in SOURCES]
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)]
+              for s, o in zip(SOURCES, objs)])
+        lib = str(Path(tmp) / out.name)
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
     build_seconds = time.perf_counter() - t0
 
 

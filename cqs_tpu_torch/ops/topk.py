@@ -7,11 +7,13 @@ Port of ``cqs_tpu/ops/topk.py``. Two layers:
   :func:`scan_topk_plain_loop` and :func:`scan_topk_plain_grouped`, on
   ``[num_tiles, B, m]`` outputs, plus the stage-2 merge :func:`merge_tiles`.
 - :func:`scan_topk`, the twin of ``topk_pallas``: on a CUDA tensor it
-  launches the hand-written kernel (``csrc/scan_topk.cu``) of the
-  extraction and of the (rows, query) dtype pair, as the reference's kernel
-  bodies branch on them: bf16 x bf16 (:data:`LOOP` / :data:`GROUPED`), int8
-  x int8 (:data:`LOOP_I8` / :data:`GROUPED_I8`) and int8 rows widened
-  against a bf16 query (:data:`LOOP_I8W` / :data:`GROUPED_I8W`). On a CPU
+  launches the hand-written kernel of the extraction and of the (rows,
+  query) dtype pair, as the reference's kernel bodies branch on them: bf16
+  x bf16 (:data:`LOOP` / :data:`GROUPED`), int8 x int8 (:data:`LOOP_I8` /
+  :data:`GROUPED_I8`) and int8 rows widened against a bf16 query
+  (:data:`LOOP_I8W` / :data:`GROUPED_I8W`). :data:`GROUPED` and
+  :data:`GROUPED_I8W` are the tensor-core kernel of ``csrc/scan_topk_mma.cu``;
+  the other four the CUDA-core template of ``csrc/scan_topk.cu``. On a CPU
   tensor it runs the plain version.
 
 Stage 2 is the exact stable top-k, which is what the reference computes off
@@ -24,12 +26,17 @@ import torch
 
 from cqs_tpu_torch.ops.fusion import NEG, stable_topk
 
-#: Widest row the kernels take (the query block sits in shared memory).
+#: Widest row the kernels take (the CUDA-core kernels hold the query block
+#: in shared memory).
 MAX_DIM = 4096
 #: Group lanes of the grouped extraction.
 GROUP_LANES = 128
 #: Dynamic shared memory one CTA may use on Hopper, less the static part.
 _SMEM_LIMIT = 227 * 1024 - 1024
+#: Query blocks the tensor-core grouped kernel is built for.
+MMA_QUERY_BLOCKS = (8, 16, 32, 64)
+#: Tallest tile it takes: a group's winning sub-tile is kept in a byte.
+MMA_MAX_TILE = 256 * GROUP_LANES
 
 
 #: rows of the int8 twin's float64 product taken at a time (bounds the
@@ -188,17 +195,28 @@ def check_kernel_args(index: torch.Tensor, queries: torch.Tensor,
     check_geometry(n, tile_n, m, grouped)
     if not (index.is_contiguous() and queries.is_contiguous() and mask.is_contiguous()):
         raise ValueError("scan kernels take contiguous tensors")
-    if index.data_ptr() % 16:
-        raise ValueError("index rows must be 16-byte aligned")
+    if index.data_ptr() % 16 or queries.data_ptr() % 16:
+        raise ValueError("index rows and queries must be 16-byte aligned")
     if not (index.device == queries.device == mask.device):
         raise ValueError("index, queries and mask must share one device")
     return kind
 
 
+def mma_query_block(b: int) -> int:
+    """Query block of the tensor-core grouped kernel for a batch of ``b``:
+    the narrowest built block that holds the batch, else the widest, so a
+    row tile is read by ceil(b / 64) CTAs (two at B=128). Its shared memory
+    does not depend on the row width: rows and queries both stream along
+    it."""
+    return next((qb for qb in MMA_QUERY_BLOCKS if qb >= b), MMA_QUERY_BLOCKS[-1])
+
+
 class ScanKernel:
-    """One hand-written CUDA scan kernel: one extraction over one row kind.
-    ``launches`` counts the times this wrapper launched it (and nothing
-    else)."""
+    """One hand-written CUDA scan kernel on CUDA cores (``csrc/scan_topk.cu``):
+    one extraction over one row kind. ``launches`` counts the times this
+    wrapper launched it (and nothing else)."""
+
+    source = "cqs_tpu_torch/csrc/scan_topk.cu"
 
     def __init__(self, name: str, kind: str, grouped: bool, replaces: str):
         self.name = name
@@ -206,8 +224,20 @@ class ScanKernel:
         self.symbol = f"cqs_scan_topk_{'grouped' if grouped else 'loop'}_{kind}"
         self.grouped = grouped
         self.replaces = replaces
-        self.source = "cqs_tpu_torch/csrc/scan_topk.cu"
         self.launches = 0
+
+    def query_block(self, lib, b: int, d: int, tile_n: int) -> int:
+        """Queries per CTA: at most 8, halved while the [qb, tile_n] score
+        block and the query block overflow shared memory."""
+        def smem(qb):
+            return lib.cqs_scan_smem_bytes(_KIND_ABI[self.kind], qb, d, tile_n)
+
+        qb = 8
+        while qb > 1 and (qb >= 2 * b or smem(qb) > _SMEM_LIMIT):
+            qb //= 2
+        if smem(qb) > _SMEM_LIMIT:
+            raise ValueError(f"tile {tile_n} x width {d} exceeds shared memory")
+        return qb
 
     def __call__(self, index: torch.Tensor, queries: torch.Tensor,
                  mask: torch.Tensor, tile_n: int, m: int):
@@ -221,15 +251,7 @@ class ScanKernel:
         lib = _kernels.load()
         n, d = index.shape
         b = queries.shape[0]
-
-        def smem(qb):
-            return lib.cqs_scan_smem_bytes(_KIND_ABI[kind], qb, d, tile_n)
-
-        qb = 8
-        while qb > 1 and (qb >= 2 * b or smem(qb) > _SMEM_LIMIT):
-            qb //= 2
-        if smem(qb) > _SMEM_LIMIT:
-            raise ValueError(f"tile {tile_n} x width {d} exceeds shared memory")
+        qb = self.query_block(lib, b, d, tile_n)
         vals = torch.empty((n // tile_n, b, m), dtype=torch.float32, device=index.device)
         rows = torch.empty((n // tile_n, b, m), dtype=torch.int32, device=index.device)
         with torch.cuda.device(index.device):    # launch in the tensors' context
@@ -243,18 +265,32 @@ class ScanKernel:
         return vals, rows
 
 
+class MmaScanKernel(ScanKernel):
+    """The grouped extraction on tensor cores (``csrc/scan_topk_mma.cu``):
+    bf16 rows, or int8 rows widened to bf16, against a bf16 query block of
+    :func:`mma_query_block`; rows and queries stream through shared memory,
+    so no score block exists."""
+
+    source = "cqs_tpu_torch/csrc/scan_topk_mma.cu"
+
+    def query_block(self, lib, b: int, d: int, tile_n: int) -> int:
+        if tile_n > MMA_MAX_TILE:
+            raise ValueError(f"tile {tile_n} taller than {MMA_MAX_TILE} rows")
+        return mma_query_block(b)
+
+
 LOOP = ScanKernel("scan_topk_loop", "bf16", grouped=False,
                   replaces="cqs_tpu/ops/topk.py:58")
-GROUPED = ScanKernel("scan_topk_grouped", "bf16", grouped=True,
-                     replaces="cqs_tpu/ops/topk.py:183")
+GROUPED = MmaScanKernel("scan_topk_grouped", "bf16", grouped=True,
+                        replaces="cqs_tpu/ops/topk.py:183")
 LOOP_I8 = ScanKernel("scan_topk_loop_i8", "i8", grouped=False,
                      replaces="cqs_tpu/ops/topk.py:69")
 GROUPED_I8 = ScanKernel("scan_topk_grouped_i8", "i8", grouped=True,
                         replaces="cqs_tpu/ops/topk.py:206")
 LOOP_I8W = ScanKernel("scan_topk_loop_i8w", "i8w", grouped=False,
                       replaces="cqs_tpu/ops/topk.py:76")
-GROUPED_I8W = ScanKernel("scan_topk_grouped_i8w", "i8w", grouped=True,
-                         replaces="cqs_tpu/ops/topk.py:210")
+GROUPED_I8W = MmaScanKernel("scan_topk_grouped_i8w", "i8w", grouped=True,
+                            replaces="cqs_tpu/ops/topk.py:210")
 KERNELS = (LOOP, GROUPED, LOOP_I8, GROUPED_I8, LOOP_I8W, GROUPED_I8W)
 _BY_KIND = {(k.kind, k.grouped): k for k in KERNELS}
 

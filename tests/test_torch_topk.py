@@ -14,7 +14,8 @@ from jax.experimental.pallas import tpu as pltpu
 from cqs_tpu.ops.topk import topk_pallas, topk_xla
 from cqs_tpu_torch.ops.fusion import NEG, stable_topk
 from cqs_tpu_torch.ops.topk import (
-    GROUPED, LOOP, check_kernel_args, merge_tiles, scan_topk, scan_topk_plain_grouped,
+    GROUPED, GROUPED_I8W, LOOP, MAX_DIM, MMA_MAX_TILE, MMA_QUERY_BLOCKS, MmaScanKernel,
+    check_kernel_args, merge_tiles, mma_query_block, scan_topk, scan_topk_plain_grouped,
     scan_topk_plain_loop, topk_plain,
 )
 
@@ -213,6 +214,36 @@ def test_kernel_args_grouped_limits():
         check_kernel_args(index, q, mask, 128, 129, grouped=True)
     with pytest.raises(ValueError):
         check_kernel_args(index, q, mask, 96, 4, grouped=True)
+
+
+def test_mma_query_block_covers_every_batch():
+    for b in range(1, 129):
+        qb = mma_query_block(b)
+        blocks = -(-b // qb)
+        assert qb % 8 == 0 and qb in MMA_QUERY_BLOCKS
+        assert blocks * qb >= b > (blocks - 1) * qb       # every query, no empty block
+        assert qb >= min(b, 64)                           # no block narrower than needed
+    assert -(-128 // mma_query_block(128)) <= 2           # a tile is read at most twice
+
+
+@pytest.mark.parametrize("kind", ["bf16", "i8w"])
+def test_mma_kernel_widths_unchanged(kind):
+    # the grouped kernels take bf16 widths in multiples of 8 and int8
+    # widths in multiples of 16, up to 4096, as before the tensor-core kernel
+    dtype, step = (torch.bfloat16, 8) if kind == "bf16" else (torch.int8, 16)
+    for d in range(step, MAX_DIM + 1, step):
+        index, _, mask = _kargs(d=d, dtype=dtype)
+        q = torch.zeros(2, d, dtype=torch.bfloat16)
+        assert check_kernel_args(index, q, mask, 128, 4, grouped=True) == kind
+    for d in (step // 2, step + step // 2, MAX_DIM + step):
+        index, _, mask = _kargs(d=d, dtype=dtype)
+        with pytest.raises(ValueError):
+            check_kernel_args(index, torch.zeros(2, d, dtype=torch.bfloat16), mask, 128, 4,
+                              grouped=True)
+    kernel = GROUPED if kind == "bf16" else GROUPED_I8W
+    assert isinstance(kernel, MmaScanKernel) and kernel.source.endswith("scan_topk_mma.cu")
+    with pytest.raises(ValueError):
+        kernel.query_block(None, 128, 1024, 2 * MMA_MAX_TILE)
 
 
 def test_wrapper_raises_on_cpu_tensor_and_bad_shapes():
