@@ -12,11 +12,13 @@ Phases, each fatal on error (non-zero exit, no result line):
    programs' shapes, with both times. bf16: row widths 256 and 1024, tile
    2048, B 1/8/128, m 4/16/64, 4096 and 1,048,576 rows. int8 x int8 and
    int8-widened: 1,048,576 rows of width 256 and 1024, tiles 2048 and 4096,
-   B 1/8/128, m 4/16, and tile 16384 x 256 at B=1. The two tensor-core
-   grouped kernels also where an MMA design breaks: widths 24 (bf16) and 48
-   (int8), not multiples of 16 or of the 64-wide K-chunk, and 4096; B 3, 65
-   and 128; tiles 128 (one row a group) and 16384 (128). int8 x int8 must
-   equal its twin exactly, slot for slot; the others within a score near-tie;
+   B 1/8/128, m 4/16, and tile 16384 x 256 at B=1; the int8 x int8 grouped
+   kernel beside ``torch._int_mm`` on the same score product (not the same
+   function). The three tensor-core grouped kernels also where an MMA
+   design breaks: widths 24 (bf16), 48 (int8 widened) and 16/48/1024/4096
+   (int8 x int8), not multiples of 16 or of the K-chunk; B 1, 3, 65 and 128; tiles 128 (one row a group) to 16384;
+   m up to 128. int8 x int8 must equal its twin exactly, slot for slot; the
+   others within a score near-tie;
 4. e2e: index a copy of this repository's sources through the port's CLI,
    answer searches through it and the engine, then a paused burst through
    the ``QueryBatcher`` whose results must equal the solo ones; once with
@@ -33,10 +35,12 @@ Phases, each fatal on error (non-zero exit, no result line):
 
 The kernels' launch counters are zeroed before phase 4 and read after
 phase 5; a kernel that did not launch there fails the run, and so does a
-widening kernel that did not launch in phase 3. The second-to-last line is
-a JSON object with each kernel's launches, error and times; the last is
-``{"ok": true, "device": {...}}``. Needs one CUDA card; exits non-zero
-without one or outside a checkout of the repository.
+widening kernel that did not launch in phase 3, and so does any module of
+JAX or of the JAX package (``cqs_tpu``) in ``sys.modules`` at the end. The
+third-to-last line is a JSON object with each kernel's launches, error,
+times, bound and library time; then the card's name and power limit; the
+last is ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits
+non-zero without one or outside a checkout of the repository.
 """
 
 from __future__ import annotations
@@ -89,6 +93,29 @@ def cuda_ms(fn, iters: int) -> float:
 
 # -- phase 3: kernels against their plain twins ------------------------------
 
+#: H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s, and tensor-core
+#: operations/s for the kernels' operand types (int8; bf16, which the
+#: widening kernels multiply in)
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"i8": 1979e12, "bf16": 989e12, "i8w": 989e12}
+#: the one PyTorch call timed beside a kernel as ``library_ms``, where there
+#: is one; no single call computes a scan with a per-tile top-m
+LIBRARY_CALLS = {"scan_topk_grouped_i8": "torch._int_mm: the score product only, "
+                 "not the same function"}
+
+
+def bound_ms(kind: str, n: int, d: int, b: int, tile: int, m: int) -> tuple[float, str]:
+    """Least time of one scan on the card: its bytes (rows, mask and queries
+    read once, the [tiles, B, m] values and rows written once) over HBM's
+    rate, or its 2*B*N*D operations over the tensor-core peak of its type,
+    whichever is larger."""
+    row_b = 2 if kind == "bf16" else 1
+    q_b = 1 if kind == "i8" else 2
+    nbytes = n * d * row_b + n * 4 + b * d * q_b + (n // tile) * b * m * 8
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = 2.0 * b * n * d / PEAK_OPS_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
 def compare_tiles(kernel, plain, index, q, mask, tile, m, label):
     """Kernel vs plain per-tile outputs. Values within rtol/atol; rows equal
     except where the two rows' plain scores are within the same tolerance
@@ -126,6 +153,33 @@ def compare_exact(kernel, plain, index, q, mask, tile, m, label):
         fail(f"{label}: {int((kv != pv).sum())} values and {int((kr != pr).sum())} rows "
              f"differ from the plain twin (exact sums must match exactly)")
     return 0.0
+
+
+def check_grouped_i8(torch, dev, seed: int) -> int:
+    """The tensor-core GROUPED_I8, slot for slot equal to its float64 twin
+    where an MMA design breaks: widths 16 and 48 (K padded inside the last
+    chunk), 1024 and 4096; B 1, 3, 65, 128 (zero queries inside an n-tile,
+    a second query block; query blocks 8 and 64, the two ring depths);
+    tiles 128 (one row a group) to 16384; m up to 128 (every group
+    retired). Full-range int8 values (-128 included), 2% of rows masked.
+    Draws from a generator of its own, so the later phases' data do not
+    depend on it. Returns the number of cases."""
+    from cqs_tpu_torch.ops.topk import GROUPED_I8, scan_topk_plain_grouped
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 104729)
+    n, cases = 32768, 0
+    for d in (16, 48, 1024, 4096):
+        index = torch.randint(-128, 128, (n, d), device=dev, generator=gen, dtype=torch.int8)
+        mask = (torch.rand(n, device=dev, generator=gen) > 0.02).to(torch.int32)
+        for b in (1, 3, 65, 128):
+            q = torch.randint(-128, 128, (b, d), device=dev, generator=gen, dtype=torch.int8)
+            for tile in (128, 2048, 4096, 16384):
+                for m in (4, 16, 128):
+                    compare_exact(GROUPED_I8, scan_topk_plain_grouped, index, q, mask, tile, m,
+                                  f"{GROUPED_I8.name} d={d} b={b} tile={tile} m={m}")
+                    cases += 1
+        del index, mask
+    return cases
 
 
 def adversarial_cases(torch, dev, rng):
@@ -197,7 +251,7 @@ def int8_cases(torch, dev, rng):
              t(mm, torch.int32), tile, m) for name, ix, qq, mm, tile, m in cases]
 
 
-def phase_kernels(torch, dev, rng, report):
+def phase_kernels(torch, dev, rng, seed, report):
     from cqs_tpu_torch.ops.topk import (GROUPED, GROUPED_I8, GROUPED_I8W, KERNELS, LOOP,
                                         LOOP_I8, LOOP_I8W, scan_topk_plain_grouped,
                                         scan_topk_plain_loop)
@@ -214,6 +268,10 @@ def phase_kernels(torch, dev, rng, report):
                                 cmp(kernel, plain_of(kernel), index, q, mask, tile, m, label))
 
     def timed(kernel, index, q, mask, tile, m, iters):
+        """Both twins' times, in turns (plain, kernel, kernel, plain); for
+        GROUPED_I8 also torch._int_mm on the same score product (not the
+        same function: no top-m) where it takes the shape (B a multiple of
+        8)."""
         n, d = index.shape
         b = q.shape[0]
         check(kernel, index, q, mask, tile, m,
@@ -223,9 +281,17 @@ def phase_kernels(torch, dev, rng, report):
         km1 = cuda_ms(lambda: kernel(index, q, mask, tile, m), iters)
         km2 = cuda_ms(lambda: kernel(index, q, mask, tile, m), iters)
         pm2 = cuda_ms(lambda: plain(index, q, mask, tile, m), iters)
+        lib_ms = None
+        if kernel is GROUPED_I8 and b % 8 == 0:
+            qt = q.t().contiguous()           # [D, B]: index @ qt is the scores' transpose
+            lib_ms = cuda_ms(lambda: torch._int_mm(index, qt), iters)
         timings.append({"kernel": kernel.name, "n": n, "d": d, "tile": tile, "b": b, "m": m,
-                        "ms": (km1 + km2) / 2, "plain_ms": (pm1 + pm2) / 2})
+                        "ms": (km1 + km2) / 2, "plain_ms": (pm1 + pm2) / 2,
+                        "library_ms": lib_ms})
 
+    cases = check_grouped_i8(torch, dev, seed)
+    print(f"kernels: {GROUPED_I8.name} exact at {cases} (width, B, tile, m) cases: widths "
+          f"16/48/1024/4096, B 1/3/65/128, tiles 128-16384, m 4/16/128")
     for name, index, q, mask, tile, m in adversarial_cases(torch, dev, rng):
         for kernel in (LOOP, GROUPED):
             check(kernel, index, q, mask, tile, m, f"{kernel.name}/{name}")
@@ -301,10 +367,13 @@ def phase_kernels(torch, dev, rng, report):
                     timed(kernel, index, qbf, mask, 16384, 16, 10)
         del index, mask
         torch.cuda.empty_cache()
-    print("kernels: main-path shapes ok; times (ms, CUDA events, kernel vs plain):")
+    print("kernels: main-path shapes ok; times (ms, CUDA events, kernel vs plain; "
+          "library: torch._int_mm, the score product only, not the same function):")
     for t in timings:
-        print(f"  {t['kernel']:22s} n={t['n']:8d} d={t['d']:5d} tile={t['tile']:5d} "
-              f"b={t['b']:4d} m={t['m']:3d}  kernel {t['ms']:9.4f}  plain {t['plain_ms']:9.4f}")
+        lib = f"  library {t['library_ms']:9.4f}" if t["library_ms"] is not None else ""
+        print(f"  {t['kernel']:26s} n={t['n']:8d} d={t['d']:5d} tile={t['tile']:5d} "
+              f"b={t['b']:4d} m={t['m']:3d}  kernel {t['ms']:9.4f}  plain {t['plain_ms']:9.4f}"
+              f"{lib}")
     for name, err in errs.items():
         print(f"kernels: {name} max |err| vs plain {err:.3g}")
     report["errs"] = errs
@@ -459,11 +528,18 @@ def top10_agreement(got, ref) -> float:
                           for g, r in zip(got[:, :10].cpu(), ref[:, :10].cpu())]))
 
 
-def phase_scale(torch, dev, rng, report, n: int = SCALE_ROWS):
+def scale_workload(torch, dev, rng, n: int = SCALE_ROWS, b: int = 128):
+    """The scale phase's workload: a synthetic n-row index at the hash
+    tier's widths (D=256, T=256, S=1024, vocab 32768, pool 500) and b
+    queries near indexed rows, all drawn from ``rng`` in a fixed order, the
+    index's int8 copies, and the bf16, q8 and sk8 programs over queries i:j
+    as the engine calls them. ``scripts/torch_ab.py`` runs this workload in
+    turns on two checkouts. Returns a namespace."""
+    import types
+
     import numpy as np
 
     from cqs_tpu_torch.index import DenseIndex, SpladeIndex, Stamp
-    from cqs_tpu_torch.ops.topk import scan_topk, topk_plain
     from cqs_tpu_torch.search import program
     from cqs_tpu_torch.search.engine import bf16_extraction
 
@@ -483,14 +559,8 @@ def phase_scale(torch, dev, rng, report, n: int = SCALE_ROWS):
     sparse = SpladeIndex(ids, doc_ids, doc_w, v, stamp, device=dev, sketch_dim=s)
     t2 = time.perf_counter()
     packed = sparse.packed_terms()
-    torch.cuda.synchronize()
-    gb = sum(x.numel() * x.element_size() for x in
-             (dense.matrix, sparse.doc_ids, sparse.doc_w, sparse.sketch, packed)) / 1e9
-    print(f"scale: {n} rows, D={d}, T={t}, S={s}: data {gen_s:.1f} s, dense index "
-          f"{t1 - t0:.1f} s, sparse index incl. host sketch build {t2 - t1:.1f} s; "
-          f"{gb:.2f} GB on the device")
+    dense_i8, sketch_i8 = dense.dense_i8(), sparse.sketch_i8()
 
-    b, nq = 128, 16
     rows = rng.choice(n, size=b, replace=False)
     q = mat[rows] / np.linalg.norm(mat[rows], axis=1, keepdims=True)
     q = (q + 0.5 * rng.standard_normal((b, d), dtype=np.float32) / np.sqrt(d)).astype(np.float32)
@@ -500,16 +570,7 @@ def phase_scale(torch, dev, rng, report, n: int = SCALE_ROWS):
     q_ids_t, q_w_t = torch.from_numpy(q_ids).to(dev), torch.from_numpy(q_w).to(dev)
     alphas = torch.full((b,), 0.8, device=dev)
     arrays = (dense.matrix, packed, None, sparse.sketch, dense.mask)
-
     ext = bf16_extraction(dense.capacity, b)
-    ptk, ran = program.scan_geometry(n, pool, 2048, ext)
-    if n >= 131072 and ran != "grouped":
-        fail(f"B={b} at {n} rows did not select the grouped kernel ({ran})")
-
-    # the int8 copies a q8/sk8 engine builds once per index generation
-    q8_build_ms = cuda_ms(dense._int8_copy, 3)
-    sk8_build_ms = cuda_ms(lambda: program.quantize_sketch(sparse.sketch), 3)
-    dense_i8, sketch_i8 = dense.dense_i8(), sparse.sketch_i8()
 
     def qs(i, j):
         return q_dense[i:j], q_ids_t[i:j], q_w_t[i:j], alphas[i:j]
@@ -529,6 +590,39 @@ def phase_scale(torch, dev, rng, report, n: int = SCALE_ROWS):
         return program.hybrid_query_batch_sk8(dense.matrix, packed, None, sketch_i8,
                                               dense.mask, *qs(i, j), pool, v)
 
+    return types.SimpleNamespace(
+        n=n, b=b, d=d, t=t, s=s, v=v, pool=pool, q=q, dense=dense, sparse=sparse, packed=packed,
+        dense_i8=dense_i8, sketch_i8=sketch_i8, q_dense=q_dense, q_ids_t=q_ids_t, q_w_t=q_w_t,
+        alphas=alphas, ext=ext, programs={"bf16": bf16, "q8": q8, "sk8": sk8},
+        gen_s=gen_s, dense_s=t1 - t0, sparse_s=t2 - t1)
+
+
+def phase_scale(torch, dev, rng, report, n: int = SCALE_ROWS):
+    import numpy as np
+
+    from cqs_tpu_torch.ops.topk import scan_topk, topk_plain
+    from cqs_tpu_torch.search import program
+
+    w = scale_workload(torch, dev, rng, n)
+    dense, sparse, packed, pool, v, s, b = w.dense, w.sparse, w.packed, w.pool, w.v, w.s, w.b
+    q, q_dense, q_ids_t, q_w_t, alphas = w.q, w.q_dense, w.q_ids_t, w.q_w_t, w.alphas
+    torch.cuda.synchronize()
+    gb = sum(x.numel() * x.element_size() for x in
+             (dense.matrix, sparse.doc_ids, sparse.doc_w, sparse.sketch, packed)) / 1e9
+    print(f"scale: {n} rows, D={w.d}, T={w.t}, S={s}: data {w.gen_s:.1f} s, dense index "
+          f"{w.dense_s:.1f} s, sparse index incl. host sketch build {w.sparse_s:.1f} s; "
+          f"{gb:.2f} GB on the device")
+
+    nq = 16
+    ptk, ran = program.scan_geometry(n, pool, 2048, w.ext)
+    if n >= 131072 and ran != "grouped":
+        fail(f"B={b} at {n} rows did not select the grouped kernel ({ran})")
+
+    # the int8 copies a q8/sk8 engine builds once per index generation
+    q8_build_ms = cuda_ms(dense._int8_copy, 3)
+    sk8_build_ms = cuda_ms(lambda: program.quantize_sketch(sparse.sketch), 3)
+    dense_i8 = w.dense_i8
+
     def exact(bq):
         qm = q_dense[:bq].to(torch.bfloat16)
         qsk = program._query_sketch(q_ids_t[:bq], q_w_t[:bq], s).to(torch.bfloat16)
@@ -542,7 +636,7 @@ def phase_scale(torch, dev, rng, report, n: int = SCALE_ROWS):
         return torch.cat([fn(i, i + 1)[1] for i in range(nq)])
 
     res = {}
-    for name, fn in (("bf16", bf16), ("q8", q8), ("sk8", sk8)):
+    for name, fn in w.programs.items():
         res[name] = {"b1_ms": cuda_ms(lambda: fn(0, 1), 20),
                      "b128_ms": cuda_ms(lambda: fn(0, b), 10),
                      "agree_b1": top10_agreement(solo_rows(fn), ref_1),
@@ -594,7 +688,7 @@ def phase_scale(torch, dev, rng, report, n: int = SCALE_ROWS):
     for name in ("q8", "sk8", "screened_int8"):
         if min(x for k, x in res[name].items() if k.startswith("agree")) < 0.8:
             fail(f"{name} top-10 agreement with the exact scan below 0.8")
-    report["scale"] = {"device_gb": gb, "sketch_build_s": t2 - t1, "ptk": ptk,
+    report["scale"] = {"device_gb": gb, "sketch_build_s": w.sparse_s, "ptk": ptk,
                        "dense_i8_ms": q8_build_ms, "sketch_i8_ms": sk8_build_ms, **res}
 
 
@@ -629,7 +723,7 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     report: dict = {}
     if "kernels" in phases:
-        phase_kernels(torch, dev, rng, report)
+        phase_kernels(torch, dev, rng, args.seed, report)
     kernel_phase = {k.name: k.launches for k in KERNELS}
     if "kernels" in phases:
         print(f"launches in the kernel phase: {kernel_phase}")
@@ -652,6 +746,9 @@ def main() -> int:
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")]
     if loaded:
         fail(f"JAX modules were imported: {loaded[:5]}")
+    reference = [m for m in sys.modules if m.split(".")[0] == "cqs_tpu"]
+    if reference:
+        fail(f"modules of the JAX package were imported: {reference[:5]}")
     # the case each kernel's times on the kernels line come from: the 1M x
     # 1024 sketch scan, loop at B=1 and grouped at B=128 (tile 2048, m 4)
     kernels = []
@@ -659,11 +756,15 @@ def main() -> int:
         t = next((x for x in report.get("timings", [])
                   if (x["kernel"], x["n"], x["d"], x["tile"], x["b"], x["m"])
                   == (k.name, SCALE_ROWS, 1024, 2048, 128 if k.grouped else 1, 4)), None)
+        bound = t and bound_ms(k.kind, t["n"], t["d"], t["b"], t["tile"], t["m"])
         kernels.append({"name": k.name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces, "launches": k.launches,
                         "kernel_phase_launches": kernel_phase[k.name],
                         "max_abs_err": report.get("errs", {}).get(k.name),
-                        "ms": t and t["ms"], "plain_ms": t and t["plain_ms"]})
+                        "ms": t and t["ms"], "plain_ms": t and t["plain_ms"],
+                        "bound_ms": bound and bound[0], "bound_by": bound and bound[1],
+                        "library_ms": t and t["library_ms"],
+                        "library_call": LIBRARY_CALLS.get(k.name)})
     out_dir = REPO / "chiprun_out"
     if out_dir.is_dir():                     # full record, written when the output dir exists
         (out_dir / "chip_smoke.json").write_text(json.dumps(

@@ -13,11 +13,14 @@ CUDA C++ kernels for ``sm_90a`` (``csrc/scan_topk.cu`` on CUDA cores,
     pipeline.py         -- index pipeline (parse -> NL -> embed -> store -> sparse)
 
 Host code with no device work (config, store, parser, nl, router, scoring,
-lexical legs, tokenizer) is shared with ``cqs_tpu`` through ``_shared``, which
-must be imported before anything else here. Every device-facing entry point
-takes an explicit ``device``; nothing falls back to the CPU silently.
+lexical legs, tokenizer, and the tokenizer's C++ in ``native/``) is the
+port's own copy of the reference's, at the same relative paths with only
+``cqs_tpu.`` imports renamed (``tests/test_torch_standalone.py`` pins each
+copy to its original); nothing here imports ``cqs_tpu``. The on-disk format
+(store schema, parser and tokenizer versions, index artifacts) is the
+reference's, so either package opens the other's index. Every device-facing
+entry point takes an explicit ``device``; nothing falls back to the CPU
+silently.
 """
-
-from cqs_tpu_torch import _shared  # noqa: F401  (must run first)
 
 __version__ = "0.1.0"

@@ -13,10 +13,10 @@ from pathlib import Path
 
 import torch
 
-from cqs_tpu.config import REGISTRY, Config, find_project_root
-from cqs_tpu.models.registry import get_preset
-from cqs_tpu.store import Store, resolve_slot, slot_dir
-from cqs_tpu.utils.trace import get_tracer
+from cqs_tpu_torch.config import REGISTRY, Config, find_project_root
+from cqs_tpu_torch.models.registry import get_preset
+from cqs_tpu_torch.store import Store, resolve_slot, slot_dir
+from cqs_tpu_torch.utils.trace import get_tracer
 from cqs_tpu_torch.device import resolve_device
 from cqs_tpu_torch.models import Embedder, SpladeEncoder
 from cqs_tpu_torch.search.engine import SearchEngine

@@ -3,7 +3,8 @@
 
 Port of the ``index`` and ``search`` commands of ``cqs_tpu/cli``
 (``main.py``, ``commands.py::cmd_index``/``cmd_search``), with the same JSON
-envelope (``cqs_tpu/cli/envelope.py``, shared). A bare first argument that
+envelope from the port's own copy of the reference's ``envelope.py``
+(pinned to it by ``tests/test_torch_standalone.py``). A bare first argument that
 is not a command is a search query. Every other command of the reference
 exits non-zero with "not yet ported". ``--device`` defaults to ``cuda`` and
 fails loudly where there is no GPU; ``--device cpu`` runs the plain scans.
@@ -17,8 +18,8 @@ import sys
 import time
 from pathlib import Path
 
-from cqs_tpu.cli.envelope import emit, envelope, staleness_meta
-from cqs_tpu.utils.trace import configure as configure_tracing, record_telemetry
+from cqs_tpu_torch.cli.envelope import emit, envelope, staleness_meta
+from cqs_tpu_torch.utils.trace import configure as configure_tracing, record_telemetry
 
 #: the reference CLI's commands (cqs_tpu/cli/main.py KNOWN_COMMANDS)
 REFERENCE_COMMANDS = {
@@ -114,7 +115,7 @@ def main(argv: list[str] | None = None) -> int:
 
 
 def cmd_index(ctx, args) -> int:
-    from cqs_tpu.store.lock import IndexLock, IndexLocked
+    from cqs_tpu_torch.store.lock import IndexLock, IndexLocked
     from cqs_tpu_torch.pipeline import run_index_pipeline
 
     try:
@@ -152,7 +153,7 @@ def _parse_chunk_types(args):
     """--type/--exclude-type -> an include list (None = code-only default);
     the reference's rules (``cqs_tpu/cli/commands.py::_parse_chunk_types``).
     Raises ValueError on an unknown type."""
-    from cqs_tpu.parser.types import ChunkType
+    from cqs_tpu_torch.parser.types import ChunkType
 
     types, excl = args.types, args.exclude_types
     if not types and not excl:

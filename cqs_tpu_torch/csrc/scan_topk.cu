@@ -1,32 +1,24 @@
 // Fused exact scan + per-tile top-m for Hopper (sm_90a), on CUDA cores.
 //
-// Replaces, of the two Pallas kernel bodies reached through
-// cqs_tpu/ops/topk.py::topk_pallas (pl.pallas_call at topk.py:145), each in
-// the branches the reference picks by the dtypes of rows and query:
-//   - _scan_kernel          ("loop",    topk.py:58-108), all three kinds;
-//   - _scan_kernel_grouped  ("grouped", topk.py:183-255), int8 x int8 only
-//     (the bf16 and int8-widened grouped branches are the tensor-core
-//     kernel in scan_topk_mma.cu);
+// Replaces the Pallas kernel body cqs_tpu/ops/topk.py::_scan_kernel ("loop",
+// topk.py:58-108), reached through topk_pallas (pl.pallas_call at
+// topk.py:145), in the three branches the reference picks by the dtypes of
+// rows and query (the grouped body, _scan_kernel_grouped, is the
+// tensor-core kernel in scan_topk_mma.cu):
 //   row kinds (template parameter KIND):
 //   - kBf16:    bf16 rows x bf16 query, f32 products and sums
 //               (topk.py:79-80);
 //   - kI8:      int8 rows x int8 query -> int32 dot -> f32
-//               (topk.py:69-75, :206-209);
+//               (topk.py:69-75);
 //   - kI8Widen: int8 rows widened exactly to f32 x bf16 query, f32 sums
 //               (topk.py:76-78).
-// For each logical row tile of tile_n rows and each query they compute
-// the scores, set masked rows to NEG, and reduce the tile to m
-// (value, global row) slots:
-//   loop:    m rounds of (row max -> lowest column among the maxima ->
-//            retire that column to NEG); once only NEG is left, every later
-//            round writes NEG with the lowest column (the reference's slot
-//            contents past a tile's valid rows).
-//   grouped: fold the tile into 128 group maxima (group g = columns g,
-//            128+g, ...; strict > so the lower offset keeps a tie), then m
-//            rounds over the groups (lowest lane among the maxima), each
-//            writing the group's winning column and retiring the group.
-// Outputs are tile-major [num_tiles, B, m], as the reference's. Only the
-// score pass depends on KIND; the selection code is shared.
+// For each logical row tile of tile_n rows and each query it computes the
+// scores, sets masked rows to NEG, and reduces the tile to m (value, global
+// row) slots by m rounds of (row max -> lowest column among the maxima ->
+// retire that column to NEG); once only NEG is left, every later round
+// writes NEG with the lowest column (the reference's slot contents past a
+// tile's valid rows). Outputs are tile-major [num_tiles, B, m], as the
+// reference's. Only the score pass depends on KIND.
 //
 // What bounds it on the card: the score pass reads N*D*(2 or 1) bytes of
 // rows (plus N*4 of mask) once per query block; at B=1 that is all the work
@@ -58,7 +50,7 @@ __host__ __device__ constexpr int vec_elems(int kind) { return kind == kBf16 ? 8
 __host__ __device__ constexpr int q_bytes(int kind) { return kind == kI8 ? 1 : 4; }
 
 size_t smem_bytes(int kind, int qb, int D, int tile_n) {
-  return (size_t)qb * D * q_bytes(kind) + (size_t)qb * tile_n * 4 + (size_t)qb * kLanes * 4;
+  return (size_t)qb * D * q_bytes(kind) + (size_t)qb * tile_n * 4;
 }
 
 template <int KIND>
@@ -162,7 +154,7 @@ __device__ __forceinline__ typename Acc<KIND>::T dot_vec(uint4 x, const unsigned
   }
 }
 
-template <int KIND, int QB, bool GROUPED>
+template <int KIND, int QB>
 __global__ void __launch_bounds__(kThreads)
 scan_topk_kernel(const void* __restrict__ q,          // [B, D] bf16 bits or int8
                  const uint4* __restrict__ rows,      // [N, D], 16 bytes per uint4
@@ -175,7 +167,6 @@ scan_topk_kernel(const void* __restrict__ q,          // [B, D] bf16 bits or int
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* qs = smem;                                                // [QB, D]
   float* sc = reinterpret_cast<float*>(smem + (size_t)QB * D * q_bytes(KIND));  // [QB, tile_n]
-  int* ssel = reinterpret_cast<int*>(sc + QB * tile_n);                    // [QB, 128]
   __shared__ float red_v[kWarps];
   __shared__ int red_i[kWarps];
 
@@ -247,31 +238,9 @@ scan_topk_kernel(const void* __restrict__ q,          // [B, D] bf16 bits or int
   const int qi = threadIdx.x / G;
   const int gt = threadIdx.x % G;
   float* s = sc + qi * tile_n;
-  int* sel = ssel + qi * kLanes;
-  int L = tile_n;
-  if (GROUPED) {
-    const int gs = tile_n / kLanes;
-    for (int g = gt; g < kLanes; g += G) {
-      float gmax = kNeg;
-      int best_s = 0;
-      for (int k = 0; k < gs; ++k) {
-        const float x = s[k * kLanes + g];
-        if (x > gmax) {
-          gmax = x;
-          best_s = k;
-        }
-      }
-      // lane g's columns are read only by this thread, so the group max can
-      // overwrite column g in place
-      s[g] = gmax;
-      sel[g] = best_s;
-    }
-    L = kLanes;
-    __syncthreads();  // sel[] is read by the group's writer thread below
-  }
   float bv;
   int bi;
-  local_best(s, L, gt, G, bv, bi);
+  local_best(s, tile_n, gt, G, bv, bi);
   const int b = b0 + qi;
   const size_t out0 = ((size_t)t * B + b) * m;
   for (int round = 0; round < m; ++round) {
@@ -280,20 +249,20 @@ scan_topk_kernel(const void* __restrict__ q,          // [B, D] bf16 bits or int
     group_argmax(mv, mi, G, red_v, red_i);
     if (gt == 0 && b < B) {
       out_v[out0 + round] = mv;
-      out_i[out0 + round] = (int)row0 + (GROUPED ? sel[mi] * kLanes + mi : mi);
+      out_i[out0 + round] = (int)row0 + mi;
     }
     if (mi % G == gt) {  // owner retires the column and rescans its share
       s[mi] = kNeg;
-      local_best(s, L, gt, G, bv, bi);
+      local_best(s, tile_n, gt, G, bv, bi);
     }
   }
 }
 
-template <int KIND, int QB, bool GROUPED>
+template <int KIND, int QB>
 int launch(const void* q, const void* rows, const void* mask, void* vals, void* inds,
            int B, int N, int D, int tile_n, int m, cudaStream_t stream) {
   const size_t smem = smem_bytes(KIND, QB, D, tile_n);
-  auto kernel = scan_topk_kernel<KIND, QB, GROUPED>;
+  auto kernel = scan_topk_kernel<KIND, QB>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -304,15 +273,15 @@ int launch(const void* q, const void* rows, const void* mask, void* vals, void* 
   return (int)cudaGetLastError();
 }
 
-template <int KIND, bool GROUPED>
+template <int KIND>
 int dispatch(const void* q, const void* rows, const void* mask, void* vals, void* inds,
              int B, int N, int D, int tile_n, int m, int qb, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (qb) {
-    case 8: return launch<KIND, 8, GROUPED>(q, rows, mask, vals, inds, B, N, D, tile_n, m, s);
-    case 4: return launch<KIND, 4, GROUPED>(q, rows, mask, vals, inds, B, N, D, tile_n, m, s);
-    case 2: return launch<KIND, 2, GROUPED>(q, rows, mask, vals, inds, B, N, D, tile_n, m, s);
-    case 1: return launch<KIND, 1, GROUPED>(q, rows, mask, vals, inds, B, N, D, tile_n, m, s);
+    case 8: return launch<KIND, 8>(q, rows, mask, vals, inds, B, N, D, tile_n, m, s);
+    case 4: return launch<KIND, 4>(q, rows, mask, vals, inds, B, N, D, tile_n, m, s);
+    case 2: return launch<KIND, 2>(q, rows, mask, vals, inds, B, N, D, tile_n, m, s);
+    case 1: return launch<KIND, 1>(q, rows, mask, vals, inds, B, N, D, tile_n, m, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -327,16 +296,14 @@ size_t cqs_scan_smem_bytes(int kind, int qb, int D, int tile_n) {
   return smem_bytes(kind, qb, D, tile_n);
 }
 
-#define CQS_SCAN_ENTRY(NAME, KIND, GROUPED)                                               \
+#define CQS_SCAN_ENTRY(NAME, KIND)                                                         \
   int NAME(const void* q, const void* rows, const void* mask, void* vals, void* inds, int B, \
            int N, int D, int tile_n, int m, int qb, void* stream) {                        \
-    return dispatch<KIND, GROUPED>(q, rows, mask, vals, inds, B, N, D, tile_n, m, qb,       \
-                                   stream);                                                \
+    return dispatch<KIND>(q, rows, mask, vals, inds, B, N, D, tile_n, m, qb, stream);       \
   }
 
-CQS_SCAN_ENTRY(cqs_scan_topk_loop_bf16, kBf16, false)
-CQS_SCAN_ENTRY(cqs_scan_topk_loop_i8, kI8, false)
-CQS_SCAN_ENTRY(cqs_scan_topk_grouped_i8, kI8, true)
-CQS_SCAN_ENTRY(cqs_scan_topk_loop_i8w, kI8Widen, false)
+CQS_SCAN_ENTRY(cqs_scan_topk_loop_bf16, kBf16)
+CQS_SCAN_ENTRY(cqs_scan_topk_loop_i8, kI8)
+CQS_SCAN_ENTRY(cqs_scan_topk_loop_i8w, kI8Widen)
 
 }  // extern "C"

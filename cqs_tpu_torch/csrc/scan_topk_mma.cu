@@ -1,9 +1,10 @@
 // Grouped scan + per-tile top-m groups on Hopper's tensor cores (sm_90a).
 //
-// Replaces the bf16 and the int8-widened branches of the Pallas kernel body
+// Replaces all three branches of the Pallas kernel body
 // cqs_tpu/ops/topk.py::_scan_kernel_grouped (topk.py:183-255; branches
-// :213-214 bf16 x bf16 and :210-212 int8 rows widened to bf16 against a
-// bf16 query), reached through topk_pallas (pl.pallas_call at topk.py:145).
+// :213-214 bf16 x bf16, :206-209 int8 x int8 -> int32, and :210-212 int8
+// rows widened to bf16 against a bf16 query), reached through topk_pallas
+// (pl.pallas_call at topk.py:145).
 // Semantics, slot for slot: a tile of tile_n rows is folded into 128 group
 // maxima (group lane g = rows g, 128+g, ...; masked rows are NEG; strict >,
 // so a tie keeps the lower offset and a fully masked group offset 0); then
@@ -11,45 +12,59 @@
 // retire the group. Exhausted slots hold NEG and lane 0's winning row.
 // Outputs are tile-major [num_tiles, B, m]; queries b >= B are not written.
 //
-// What bounds it: at B=128 on 1M x 1024 rows the scan is 275 GFLOP over
-// 2 GiB (bf16) or 1 GiB (int8) of rows. The CUDA-core kernel this replaces
-// served 8 queries per CTA, so every row tile was read 16 times, and did
-// every multiply-add as an f32 FMA (plus, for int8, a conversion per query).
-// Here one CTA serves a query block of QB <= 64 queries (zero-padded past
-// B), so a tile is read by at most two CTAs, and those two are adjacent in
-// launch order (the query block is the fast grid index), so the second read
-// mostly hits L2. Scores come from mma.sync m16n8k16 bf16 -> f32. What bounds
-// it now is the work of each CTA, not the rows read from device memory (on
-// an H100 B=64 takes half the time of B=128 at 1M x 1024): chiefly shared
-// memory, where every warp reads the whole query block's B fragments, about
-// 80 KiB of operand reads per 64-wide K-chunk against 24 KiB stored. wgmma,
-// which reads its operands from shared memory once per warpgroup, is the
-// next lever.
+// What bounds it: at B=128 on 1M x 1024 rows the scan is 275 GFLOP (or
+// GOP) over 2 GiB (bf16) or 1 GiB (int8) of rows; read once, the int8 rows
+// take 0.321 ms at 3.35 TB/s, the bf16 rows 0.641 ms. The CUDA-core kernels
+// this replaces served 8 queries per CTA, so every row tile was read 16
+// times at B=128, and did every multiply-add on CUDA cores (an f32 FMA, or
+// a quarter __dp4a for int8 x int8). Here one CTA serves a query block of
+// QB <= 64 queries (zero-padded past B), so a tile is read by at most two
+// CTAs, and those two are adjacent in launch order (the query block is the
+// fast grid index), so the second read mostly hits L2. What bounds it now
+// is the work of each CTA, not the rows read from device memory (on an
+// H100 B=64 takes half the time of B=128 at 1M x 1024): chiefly shared
+// memory, where every warp reads the whole query block's B fragments, per
+// 64-wide K-chunk about 80 KiB of operand reads against 24 KiB stored
+// (bf16), or 40 KiB against 12 KiB (int8 x int8). wgmma, which reads its
+// operands from shared memory once per warpgroup, is the next lever.
 //
 // Design: 8 warps; the tile is walked in 128-row sub-tiles, sub-tile s holds
 // row s*128 + g in group lane g, and warp w owns lanes 16w..16w+15 (the MMA's
 // M) against all QB queries (N, QB/8 n-tiles). Rows (A) and queries (B)
-// stream along D in 64-element K-chunks through a 4-stage ring of shared
-// memory filled by cp.async (zero-fill past D and past B), so the next
-// chunks load while the current one multiplies and shared memory stays
-// bounded at every width. The dot product's K order is free, so each thread
-// reads its A and B fragments as 16-byte vectors of neighbouring columns (no
-// ldmatrix): thread (g, t) takes columns 8t..8t+7 (bf16) or 16t..16t+15
-// (int8) of each 32- or 64-column slab, for rows g and g+8 and for query g
-// of each n-tile; a per-row XOR swizzle of the 16-byte chunks keeps those
-// reads free of bank conflicts. int8 row bytes become bf16 once per CTA, on
-// their way into the A fragment (exact: |v| <= 128 has 8 significant bits).
-// Each K-chunk's MMA sums are added into f32 sums once (the tensor cores'
-// chained accumulation truncates; this keeps the error below the f32
-// twin's). After a sub-tile's last chunk the f32 sums are masked and folded
-// into a running (max, offset) per owned (lane, query) in registers; no
-// score block exists. At the end the [QB, 128] maxima and byte offsets go
-// to shared memory for the m selection rounds (G = 256 / QB threads a query,
-// a shuffle reduction per round).
+// stream along D in K-chunks (64 elements; 128 for int8 x int8, so that
+// every row gives 128 contiguous bytes a stage, whole L2 lines: with 64 a
+// B=1 scan ran well below the dp4a kernel's memory rate) through a ring of
+// STAGES stages of shared memory filled by cp.async (zero-fill past D and
+// past B), so the next chunks load while the current one multiplies and
+// shared memory stays bounded at every width. The dot product's K order is
+// free, so each thread reads its A and B fragments as 16-byte vectors of
+// neighbouring columns (no ldmatrix): thread (g, t) takes columns 8t..8t+7
+// (bf16) or 16t..16t+15 (int8) of each 32- or 64-column slab, for rows g
+// and g+8 and for query g of each n-tile; a per-row XOR swizzle of the
+// 16-byte chunks keeps those reads free of bank conflicts where a row or
+// query holds 128 bytes of a K-chunk.
+//   - bf16 x bf16: mma.sync m16n8k16 bf16 -> f32.
+//   - int8 widened: int8 row bytes become bf16 once per CTA, on their way
+//     into the A fragment (exact: |v| <= 128 has 8 significant bits), then
+//     the bf16 MMA. Both float kinds add each K-chunk's MMA sums into f32
+//     sums once (the tensor cores' chained accumulation truncates; this
+//     keeps the error below the f32 twin's).
+//   - int8 x int8: the query ring holds int8 chunks (64 bytes a query), and
+//     mma.sync m16n8k32 s8 x s8 -> s32 accumulates exactly across all of D
+//     (|sum| <= 128^2 * 4096 < 2^31); the sum becomes f32 once per sub-tile
+//     with round-to-nearest, the reference's int32 -> f32 cast, so the
+//     kernel equals its twin slot for slot.
+// After a sub-tile's last chunk the sums are masked and folded into a
+// running (max, offset) per owned (lane, query) in registers; no score block
+// exists. At the end the [QB, 128] maxima and byte offsets go to shared
+// memory for the m selection rounds (G = 256 / QB threads a query, a
+// shuffle reduction per round).
 //
 // Plain C ABI for ctypes: pointers and the stream as void*, returns a CUDA
-// error code (0 = launched; cudaErrorInvalidValue for a query block, tile or
-// shared-memory size the kernel does not take).
+// error code (0 = launched; cudaErrorInvalidValue for a query block, tile
+// or shared-memory size the kernel does not take).
+
+#include <type_traits>
 
 #include "scan_common.cuh"
 
@@ -58,15 +73,19 @@ namespace {
 using namespace cqs;
 
 constexpr int kSub = 128;            // rows per sub-tile: one per group lane
-constexpr int kKC = 64;              // K elements per pipeline stage
-constexpr int kStages = 4;
-constexpr int kQRowBytes = kKC * 2;  // one query's bf16 K-chunk
+constexpr int kQRowBytes = 128;      // one query's K-chunk, every kind
 constexpr int kMaxSub = 256;         // winning offsets are kept in a byte
 
+// K elements per pipeline stage: 128 bytes of a bf16 query (or of an int8
+// one against int8 rows)
+template <int KIND>
+__host__ __device__ constexpr int k_chunk() {
+  return KIND == kI8 ? 128 : 64;
+}
 // bytes of one row's K-chunk
 template <int KIND>
 __host__ __device__ constexpr int row_bytes() {
-  return KIND == kBf16 ? kKC * 2 : kKC;
+  return KIND == kI8Widen ? 64 : 128;
 }
 
 template <int KIND, int QB>
@@ -74,24 +93,33 @@ __host__ __device__ constexpr size_t stage_bytes() {
   return (size_t)kSub * row_bytes<KIND>() + (size_t)QB * kQRowBytes;
 }
 
+// Ring depth: 4 stages, two CTAs an SM. The int8 x int8 kernel at QB 8
+// (B <= 8, solo queries) takes 6, the fastest at B=1 on an H100 (0.355
+// against 0.381 ms with 4, 1M x 1024 rows, tile 2048); at QB 64, 4 stages
+// beat both 3 stages with three CTAs an SM and 6 with one (PERF.md).
+template <int KIND, int QB>
+__host__ __device__ constexpr int ring_stages() {
+  return KIND == kI8 && QB == 8 ? 6 : 4;
+}
+
 template <int KIND, int QB>
 constexpr size_t mma_smem_bytes() {
-  const size_t pipe = kStages * stage_bytes<KIND, QB>();
+  const size_t pipe = ring_stages<KIND, QB>() * stage_bytes<KIND, QB>();
   const size_t sel = (size_t)QB * kLanes * (sizeof(float) + 1);
   return pipe > sel ? pipe : sel;
 }
 
-// 16-byte chunk c of row r as stored: bf16 rows (8 chunks a row) swap halves
-// on odd rows; int8 rows (4 chunks, 64 bytes) need no swizzle.
+// 16-byte chunk c of row r as stored: 128-byte rows (8 chunks) swap halves
+// on odd rows; the widening kind's 64-byte rows (4 chunks) need no swizzle.
 template <int KIND>
 __device__ __forceinline__ int row_chunk(int r, int c) {
-  return KIND == kBf16 ? c ^ ((r & 1) << 2) : c;
+  return KIND == kI8Widen ? c : c ^ ((r & 1) << 2);
 }
-// the same for query n's 8 chunks: the bf16 kernel reads chunk t of a half,
-// the widening kernel the pair 2t, 2t+1
+// the same for query n's 8 chunks: the bf16 and int8 kernels read chunk t
+// of a half, the widening kernel the pair 2t, 2t+1
 template <int KIND>
 __device__ __forceinline__ int q_chunk(int n, int c) {
-  return c ^ ((n & 1) * (KIND == kBf16 ? 4 : 1));
+  return c ^ ((n & 1) * (KIND == kI8Widen ? 1 : 4));
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
@@ -126,6 +154,16 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// D += A * B for one m16n8k32 tile, s8 operands, exact s32 accumulators.
+__device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
 // Byte `sel & 3` of v (int8 values with the sign bit flipped, i.e. x + 128)
 // as the exact f32 x: 2^23 + (x + 128) is built by placing the byte in the
 // mantissa of 2^23, then 2^23 + 128 is subtracted.
@@ -149,19 +187,25 @@ __device__ __forceinline__ uint32_t set_byte(uint32_t v, uint32_t s, int r) {
 
 template <int KIND, int QB>
 __global__ void __launch_bounds__(kThreads, 2)
-grouped_mma_kernel(const uint16_t* __restrict__ q,          // [B, D] bf16 bits
+grouped_mma_kernel(const unsigned char* __restrict__ q,     // [B, D] bf16 bits or int8
                    const unsigned char* __restrict__ rows,  // [N, D] bf16 or int8
                    const int* __restrict__ mask,            // [N]
                    float* __restrict__ out_v,               // [tiles, B, m]
                    int* __restrict__ out_i,                 // [tiles, B, m]
                    int B, int D, int tile_n, int m, int nqb) {
+  // exact int32 sums for int8 x int8, f32 MMA sums otherwise
+  using AccT = std::conditional_t<KIND == kI8, int, float>;
   constexpr int NT = QB / 8;                   // n-tiles of 8 queries
+  constexpr int STAGES = ring_stages<KIND, QB>();
   constexpr int RB = row_bytes<KIND>();        // bytes of one row's K-chunk
   constexpr int CPR = RB / 16;                 // 16-byte chunks of it
   constexpr int VE = KIND == kBf16 ? 8 : 16;   // row values per chunk
   constexpr int ES = KIND == kBf16 ? 2 : 1;    // row element bytes
+  constexpr int KC = k_chunk<KIND>();          // K elements per stage
+  constexpr int QRB = kQRowBytes;              // bytes of one query's K-chunk
+  constexpr int QES = KIND == kI8 ? 1 : 2;     // query element bytes
   constexpr int RCH = kSub * CPR;              // row chunks per stage
-  constexpr int QCH = QB * (kQRowBytes / 16);  // query chunks per stage
+  constexpr int QCH = QB * (QRB / 16);         // query chunks per stage
   constexpr size_t STAGE = stage_bytes<KIND, QB>();
   static_assert(RCH % kThreads == 0, "row chunks split evenly over the threads");
   extern __shared__ __align__(128) unsigned char smem[];
@@ -175,14 +219,14 @@ grouped_mma_kernel(const uint16_t* __restrict__ q,          // [B, D] bf16 bits
   const int la = warp * 16 + g;                // group lanes la and la + 8
   const size_t row0 = (size_t)tile * tile_n;
   const size_t pitch = (size_t)D * ES;
-  const int nk = (D + kKC - 1) / kKC;          // K-chunks per sub-tile
+  const int nk = (D + KC - 1) / KC;            // K-chunks per sub-tile
   const int nsub = tile_n / kSub;
   const int total = nsub * nk;
 
-  // cp.async of K-chunk c of sub-tile s into ring stage p % kStages
+  // cp.async of K-chunk c of sub-tile s into ring stage p % STAGES
   auto load = [&](int p, int s, int c) {
-    unsigned char* st = smem + (size_t)(p % kStages) * STAGE;
-    const int k0 = c * kKC;
+    unsigned char* st = smem + (size_t)(p % STAGES) * STAGE;
+    const int k0 = c * KC;
     const unsigned char* rbase = rows + (row0 + (size_t)s * kSub) * pitch;
 #pragma unroll
     for (int i = 0; i < RCH / kThreads; ++i) {
@@ -198,17 +242,17 @@ grouped_mma_kernel(const uint16_t* __restrict__ q,          // [B, D] bf16 bits
     for (int i = 0; i < (QCH + kThreads - 1) / kThreads; ++i) {
       const int e = tid + i * kThreads;
       if (QCH % kThreads == 0 || e < QCH) {
-        const int n = e / 8, cc = e % 8;
-        const int col = k0 + cc * 8;
+        const int n = e / (QRB / 16), cc = e % (QRB / 16);
+        const int col = k0 + cc * (16 / QES);
         const bool ok = col < D && b0 + n < B;
-        cp_async16(sq + n * kQRowBytes + q_chunk<KIND>(n, cc) * 16,
-                   ok ? q + (size_t)(b0 + n) * D + col : q, ok);
+        cp_async16(sq + n * QRB + q_chunk<KIND>(n, cc) * 16,
+                   ok ? q + ((size_t)(b0 + n) * D + col) * QES : q, ok);
       }
     }
   };
 
-  float acc[NT][4];   // this K-chunk's MMA sums
-  float sum[NT][4];   // the sub-tile's f32 sums of them
+  AccT acc[NT][4];    // MMA sums: this K-chunk's (float kinds) or the sub-tile's
+  float sum[NT][4];   // the float kinds' sub-tile f32 sums of them
   float gmax[NT][4];
   uint32_t offs[NT];  // byte r of offs[j]: the sub-tile of gmax[j][r]
 #pragma unroll
@@ -216,14 +260,14 @@ grouped_mma_kernel(const uint16_t* __restrict__ q,          // [B, D] bf16 bits
     offs[j] = 0;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      acc[j][r] = 0.0f;
+      acc[j][r] = 0;
       sum[j][r] = 0.0f;
       gmax[j][r] = kNeg;
     }
   }
 
   int ls = 0, lc = 0;  // sub-tile and K-chunk of the next load
-  for (int p = 0; p < kStages - 1; ++p) {
+  for (int p = 0; p < STAGES - 1; ++p) {
     if (p < total) {
       load(p, ls, lc);
       if (++lc == nk) lc = 0, ++ls;
@@ -235,10 +279,10 @@ grouped_mma_kernel(const uint16_t* __restrict__ q,          // [B, D] bf16 bits
   int ma = 0, mb = 0;
   int s = 0, c = 0;  // sub-tile and K-chunk being multiplied
   for (int it = 0; it < total; ++it) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // chunk `it` is in; stage (it - 1) % kStages is free
-    if (it + kStages - 1 < total) {
-      load(it + kStages - 1, ls, lc);
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // chunk `it` is in; stage (it - 1) % STAGES is free
+    if (it + STAGES - 1 < total) {
+      load(it + STAGES - 1, ls, lc);
       if (++lc == nk) lc = 0, ++ls;
     }
     cp_async_commit();
@@ -247,7 +291,7 @@ grouped_mma_kernel(const uint16_t* __restrict__ q,          // [B, D] bf16 bits
       mb = mtile[s * kSub + la + 8];
     }
 
-    const unsigned char* sr = smem + (size_t)(it % kStages) * STAGE;
+    const unsigned char* sr = smem + (size_t)(it % STAGES) * STAGE;
     const unsigned char* sq = sr + kSub * RB;
     if constexpr (KIND == kBf16) {
       // two 32-column slabs; thread t takes columns 8t..8t+7 of each, the
@@ -260,9 +304,26 @@ grouped_mma_kernel(const uint16_t* __restrict__ q,          // [B, D] bf16 bits
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           const int n = j * 8 + g;
-          const uint4 qv = lds128(sq + n * kQRowBytes + q_chunk<KIND>(n, cc) * 16);
+          const uint4 qv = lds128(sq + n * QRB + q_chunk<KIND>(n, cc) * 16);
           mma_bf16(acc[j], x.x, y.x, x.y, y.y, qv.x, qv.y);
           mma_bf16(acc[j], x.z, y.z, x.w, y.w, qv.z, qv.w);
+        }
+      }
+    } else if constexpr (KIND == kI8) {
+      // two 64-column slabs; thread t takes columns 16t..16t+15 of each, of
+      // rows and queries alike: words 0 and 1 (columns 16t..16t+7) feed one
+      // k32 step as its K quarters t and 4+t, words 2 and 3 the next
+#pragma unroll
+      for (int sl = 0; sl < 2; ++sl) {
+        const int cc = 4 * sl + t;
+        const uint4 x = lds128(sr + la * RB + row_chunk<KIND>(la, cc) * 16);
+        const uint4 y = lds128(sr + (la + 8) * RB + row_chunk<KIND>(la + 8, cc) * 16);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int n = j * 8 + g;
+          const uint4 qv = lds128(sq + n * QRB + q_chunk<KIND>(n, cc) * 16);
+          mma_s8(acc[j], x.x, y.x, x.y, y.y, qv.x, qv.y);
+          mma_s8(acc[j], x.z, y.z, x.w, y.w, qv.z, qv.w);
         }
       }
     } else {
@@ -282,8 +343,8 @@ grouped_mma_kernel(const uint16_t* __restrict__ q,          // [B, D] bf16 bits
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int n = j * 8 + g;
-        const uint4 q0 = lds128(sq + n * kQRowBytes + q_chunk<KIND>(n, 2 * t) * 16);
-        const uint4 q1 = lds128(sq + n * kQRowBytes + q_chunk<KIND>(n, 2 * t + 1) * 16);
+        const uint4 q0 = lds128(sq + n * QRB + q_chunk<KIND>(n, 2 * t) * 16);
+        const uint4 q1 = lds128(sq + n * QRB + q_chunk<KIND>(n, 2 * t + 1) * 16);
         mma_bf16(acc[j], a[0][0], a[0][1], a[0][2], a[0][3], q0.x, q0.y);
         mma_bf16(acc[j], a[1][0], a[1][1], a[1][2], a[1][3], q0.z, q0.w);
         mma_bf16(acc[j], a[2][0], a[2][1], a[2][2], a[2][3], q1.x, q1.y);
@@ -291,28 +352,37 @@ grouped_mma_kernel(const uint16_t* __restrict__ q,          // [B, D] bf16 bits
       }
     }
 
-    // this chunk's MMA sums into the f32 sums: a chain of MMAs into one
-    // accumulator truncates at every step (3-4x the f32 twin's error at
-    // D=4096); one f32 add per chunk rounds
+    if constexpr (KIND != kI8) {
+      // this chunk's MMA sums into the f32 sums: a chain of MMAs into one
+      // accumulator truncates at every step (3-4x the f32 twin's error at
+      // D=4096); one f32 add per chunk rounds
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        sum[j][r] += acc[j][r];
-        acc[j][r] = 0.0f;
-      }
+        for (int r = 0; r < 4; ++r) {
+          sum[j][r] += acc[j][r];
+          acc[j][r] = 0.0f;
+        }
+    }
     if (++c == nk) {  // sub-tile done: mask and fold into the group maxima
       // accumulator r of n-tile j: lane la (r < 2) or la + 8, query j*8 + 2t + (r & 1)
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          const float v = (r < 2 ? ma : mb) > 0 ? sum[j][r] : kNeg;
+          float score;
+          if constexpr (KIND == kI8) {
+            score = __int2float_rn(acc[j][r]);  // the reference's int32 -> f32 cast
+            acc[j][r] = 0;
+          } else {
+            score = sum[j][r];
+            sum[j][r] = 0.0f;
+          }
+          const float v = (r < 2 ? ma : mb) > 0 ? score : kNeg;
           if (v > gmax[j][r]) {  // strict: a tie keeps the lower offset
             gmax[j][r] = v;
             offs[j] = set_byte(offs[j], (uint32_t)s, r);
           }
-          sum[j][r] = 0.0f;
         }
       }
       c = 0;
@@ -387,7 +457,7 @@ int launch(const void* q, const void* rows, const void* mask, void* vals, void* 
   if (err != cudaSuccess) return (int)err;
   const int nqb = (B + QB - 1) / QB;
   kernel<<<(N / tile_n) * nqb, kThreads, smem, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const unsigned char*>(rows),
+      static_cast<const unsigned char*>(q), static_cast<const unsigned char*>(rows),
       static_cast<const int*>(mask), static_cast<float*>(vals), static_cast<int*>(inds), B, D,
       tile_n, m, nqb);
   return (int)cudaGetLastError();
@@ -414,6 +484,12 @@ int cqs_scan_topk_grouped_bf16(const void* q, const void* rows, const void* mask
                                void* inds, int B, int N, int D, int tile_n, int m, int qb,
                                void* stream) {
   return dispatch<kBf16>(q, rows, mask, vals, inds, B, N, D, tile_n, m, qb, stream);
+}
+
+int cqs_scan_topk_grouped_i8(const void* q, const void* rows, const void* mask, void* vals,
+                             void* inds, int B, int N, int D, int tile_n, int m, int qb,
+                             void* stream) {
+  return dispatch<kI8>(q, rows, mask, vals, inds, B, N, D, tile_n, m, qb, stream);
 }
 
 int cqs_scan_topk_grouped_i8w(const void* q, const void* rows, const void* mask, void* vals,

@@ -21,12 +21,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from cqs_tpu.config import limits as default_limits
-from cqs_tpu.search.router import (
+from cqs_tpu_torch.config import limits as default_limits
+from cqs_tpu_torch.search.router import (
     Strategy, classify_query, extract_lang_hints, reclassify_with_centroid, resolve_alpha,
 )
-from cqs_tpu.search.scoring import Candidate, ScoringContext, score_candidate
-from cqs_tpu.utils.trace import get_tracer
+from cqs_tpu_torch.search.scoring import Candidate, ScoringContext, score_candidate
+from cqs_tpu_torch.utils.trace import get_tracer
 from cqs_tpu_torch.search.engine import SearchEngine, SearchHit, SearchResult, bf16_extraction
 from cqs_tpu_torch.search.program import hybrid_query_batch, trim_query_terms
 

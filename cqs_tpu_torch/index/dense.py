@@ -21,8 +21,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from cqs_tpu.config import limits as default_limits
-from cqs_tpu.index.stamp import Stamp, StampMismatch, checksum
+from cqs_tpu_torch.config import limits as default_limits
+from cqs_tpu_torch.index.stamp import Stamp, StampMismatch, checksum
 from cqs_tpu_torch.device import resolve_device
 from cqs_tpu_torch.ops.topk import scan_topk, topk_plain
 

@@ -20,8 +20,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from cqs_tpu.config import limits as default_limits
-from cqs_tpu.index.stamp import Stamp, StampMismatch, checksum
+from cqs_tpu_torch.config import limits as default_limits
+from cqs_tpu_torch.index.stamp import Stamp, StampMismatch, checksum
 from cqs_tpu_torch.device import resolve_device
 from cqs_tpu_torch.ops.sparse import build_doc_sketch
 

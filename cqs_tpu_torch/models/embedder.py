@@ -18,11 +18,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from cqs_tpu.config import limits as default_limits
-from cqs_tpu.models.registry import ModelPreset, get_preset
-from cqs_tpu.models.tokenizer import TOKENIZER_VERSION, BaseTokenizer, load_tokenizer, pick_bucket
-from cqs_tpu.utils.hashing import content_hash
-from cqs_tpu.utils.trace import span
+from cqs_tpu_torch.config import limits as default_limits
+from cqs_tpu_torch.models.registry import ModelPreset, get_preset
+from cqs_tpu_torch.models.tokenizer import TOKENIZER_VERSION, BaseTokenizer, load_tokenizer, pick_bucket
+from cqs_tpu_torch.utils.hashing import content_hash
+from cqs_tpu_torch.utils.trace import span
 from cqs_tpu_torch.device import resolve_device
 from cqs_tpu_torch.models.hash_table import normal_table
 

@@ -13,10 +13,10 @@ from pathlib import Path
 
 import numpy as np
 
-from cqs_tpu.config import limits as default_limits
-from cqs_tpu.models.registry import ModelPreset, get_preset
-from cqs_tpu.models.tokenizer import TOKENIZER_VERSION, HashTokenizer
-from cqs_tpu.utils.hashing import content_hash
+from cqs_tpu_torch.config import limits as default_limits
+from cqs_tpu_torch.models.registry import ModelPreset, get_preset
+from cqs_tpu_torch.models.tokenizer import TOKENIZER_VERSION, HashTokenizer
+from cqs_tpu_torch.utils.hashing import content_hash
 
 
 class SpladeEncoder:

@@ -11,10 +11,10 @@ Port of ``cqs_tpu/ops/topk.py``. Two layers:
   query) dtype pair, as the reference's kernel bodies branch on them: bf16
   x bf16 (:data:`LOOP` / :data:`GROUPED`), int8 x int8 (:data:`LOOP_I8` /
   :data:`GROUPED_I8`) and int8 rows widened against a bf16 query
-  (:data:`LOOP_I8W` / :data:`GROUPED_I8W`). :data:`GROUPED` and
-  :data:`GROUPED_I8W` are the tensor-core kernel of ``csrc/scan_topk_mma.cu``;
-  the other four the CUDA-core template of ``csrc/scan_topk.cu``. On a CPU
-  tensor it runs the plain version.
+  (:data:`LOOP_I8W` / :data:`GROUPED_I8W`). The three grouped kernels are
+  the tensor-core kernel of ``csrc/scan_topk_mma.cu``; the three loop
+  kernels the CUDA-core template of ``csrc/scan_topk.cu``. On a CPU tensor
+  it runs the plain version.
 
 Stage 2 is the exact stable top-k, which is what the reference computes off
 the TPU and in interpret mode (the TPU-only ``approx_max_k`` is not ported).
@@ -267,9 +267,10 @@ class ScanKernel:
 
 class MmaScanKernel(ScanKernel):
     """The grouped extraction on tensor cores (``csrc/scan_topk_mma.cu``):
-    bf16 rows, or int8 rows widened to bf16, against a bf16 query block of
-    :func:`mma_query_block`; rows and queries stream through shared memory,
-    so no score block exists."""
+    bf16 rows, int8 rows widened to bf16, or int8 rows against an int8 query
+    (exact int32 sums), in query blocks of :func:`mma_query_block`; rows and
+    queries stream through shared memory, so no score block exists (the
+    source picks each instance's ring depth)."""
 
     source = "cqs_tpu_torch/csrc/scan_topk_mma.cu"
 
@@ -285,8 +286,8 @@ GROUPED = MmaScanKernel("scan_topk_grouped", "bf16", grouped=True,
                         replaces="cqs_tpu/ops/topk.py:183")
 LOOP_I8 = ScanKernel("scan_topk_loop_i8", "i8", grouped=False,
                      replaces="cqs_tpu/ops/topk.py:69")
-GROUPED_I8 = ScanKernel("scan_topk_grouped_i8", "i8", grouped=True,
-                        replaces="cqs_tpu/ops/topk.py:206")
+GROUPED_I8 = MmaScanKernel("scan_topk_grouped_i8", "i8", grouped=True,
+                           replaces="cqs_tpu/ops/topk.py:206")
 LOOP_I8W = ScanKernel("scan_topk_loop_i8w", "i8w", grouped=False,
                       replaces="cqs_tpu/ops/topk.py:76")
 GROUPED_I8W = MmaScanKernel("scan_topk_grouped_i8w", "i8w", grouped=True,

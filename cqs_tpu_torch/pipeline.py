@@ -2,8 +2,8 @@
 
 Port of ``cqs_tpu/pipeline.py`` onto the port's models (the hash embedder on
 an explicit device, the splade-hash encoder). Parsing, NL generation, the
-store and the embedding cache are the shared host code, so both packages
-write the same store for the same tree: per-file fingerprints skip unchanged
+store and the embedding cache are the port's copies of the reference's host
+code, so both packages write the same store for the same tree: per-file fingerprints skip unchanged
 files, content-addressed ids keep unchanged chunks' embeddings, and the
 enrichment pass re-embeds chunks whose call-graph context changed.
 """
@@ -18,13 +18,13 @@ from pathlib import Path
 
 import numpy as np
 
-from cqs_tpu.config import Config, Limits, limits as default_limits
-from cqs_tpu.nl import CallContext, compute_callee_doc_freq, generate_nl, generate_nl_enriched
-from cqs_tpu.parser import Chunk, ChunkType, parse_file
-from cqs_tpu.store import EmbeddingCache, Store
-from cqs_tpu.utils.hashing import content_hash, fingerprint_file
-from cqs_tpu.utils.trace import get_tracer, span
-from cqs_tpu.utils.walk import enumerate_files
+from cqs_tpu_torch.config import Config, Limits, limits as default_limits
+from cqs_tpu_torch.nl import CallContext, compute_callee_doc_freq, generate_nl, generate_nl_enriched
+from cqs_tpu_torch.parser import Chunk, ChunkType, parse_file
+from cqs_tpu_torch.store import EmbeddingCache, Store
+from cqs_tpu_torch.utils.hashing import content_hash, fingerprint_file
+from cqs_tpu_torch.utils.trace import get_tracer, span
+from cqs_tpu_torch.utils.walk import enumerate_files
 from cqs_tpu_torch.models import Embedder, SpladeEncoder
 
 log = get_tracer("pipeline")

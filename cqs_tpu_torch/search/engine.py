@@ -2,8 +2,9 @@
 
 Port of ``cqs_tpu/search/engine.py`` with the same method names. The host
 stages (classification, FTS legs, hydration, scoring, leg fusion and rescue)
-are the reference's code run over the shared router/scoring/store modules;
-what changes is the device side. Indexes live on the engine's explicit
+are the reference's code run over the port's copies of its router, scoring
+and store modules; what changes is the device side. Indexes live on the
+engine's explicit
 ``device``, and ``_device_query`` runs the port's programs
 (``search/program.py``) there: the bf16 hybrid program, the int8 candidate
 programs (knob ``scan_q8``: 1 = q8, 2 = sk8) and the screened B=1 program
@@ -25,20 +26,20 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from cqs_tpu.config import Config, Limits, limits as default_limits
-from cqs_tpu.index.stamp import Stamp, StampMismatch
-from cqs_tpu.parser.types import ChunkType
-from cqs_tpu.search.router import (
+from cqs_tpu_torch.config import Config, Limits, limits as default_limits
+from cqs_tpu_torch.index.stamp import Stamp, StampMismatch
+from cqs_tpu_torch.parser.types import ChunkType
+from cqs_tpu_torch.search.router import (
     Category, CentroidClassifier, Classification, Strategy, classify_query,
     reclassify_with_centroid, resolve_alpha,
 )
-from cqs_tpu.search.scoring import (
+from cqs_tpu_torch.search.scoring import (
     Candidate, ScoringContext, dedup_exact_duplicates, dedup_windows,
     mmr_diversify, rrf_with_fts, score_candidate,
 )
-from cqs_tpu.store import QueryCache, Store
-from cqs_tpu.store.store import ChunkRow
-from cqs_tpu.utils.trace import get_tracer, span
+from cqs_tpu_torch.store import QueryCache, Store
+from cqs_tpu_torch.store.store import ChunkRow
+from cqs_tpu_torch.utils.trace import get_tracer, span
 from cqs_tpu_torch.device import resolve_device
 from cqs_tpu_torch.index import DenseIndex, SpladeIndex
 from cqs_tpu_torch.models import Embedder, SpladeEncoder
@@ -84,7 +85,7 @@ def _doc_demote_leg(leg: list[tuple[str, float]],
     no hydration. ``exempt_ids`` (doc chunks whose identifier-shaped name the
     query mentions — see ``scoring.doc_demotion_exempt``) keep their place in
     the code class."""
-    from cqs_tpu.search.scoring import _DOC_ORIGIN_RE
+    from cqs_tpu_torch.search.scoring import _DOC_ORIGIN_RE
 
     if not leg:
         return leg
@@ -308,7 +309,7 @@ class SearchEngine:
         if cls.strategy is Strategy.NAME_ONLY and not (path_filter or lang_filter or chunk_types):
             rows = self.store.search_by_name_fts(cls.name_query or query, limit=limit)
             if rows:
-                from cqs_tpu.utils.text import normalize_for_fts
+                from cqs_tpu_torch.utils.text import normalize_for_fts
 
                 nq = normalize_for_fts(cls.name_query or query)
                 if normalize_for_fts(rows[0].name.split("#w")[0]) == nq:
@@ -358,7 +359,7 @@ class SearchEngine:
                 keep.append(i)
         by_id = {c.id: c for c in self.store.get_chunks_by_ids(cand_ids, meta_only=True)}
 
-        from cqs_tpu.search.router import extract_lang_hints
+        from cqs_tpu_torch.search.router import extract_lang_hints
         ctx = ScoringContext(
             query=query, type_hints=cls.type_hints,
             lang_hints=extract_lang_hints(query),
@@ -450,7 +451,7 @@ class SearchEngine:
         return vals, rows.cpu().numpy(), vals, None
 
 
-    # -- host stages shared verbatim with the reference engine ---------------
+    # -- host stages, verbatim from the reference engine ----------------------
 
     def _body_digest(self, cid: str) -> str | None:
         d = self._digest_cache.get(cid)
@@ -511,7 +512,7 @@ class SearchEngine:
         cached = getattr(self, "_host_lex", None)
         if cached is not None and cached[0] == tok:
             return cached[1]
-        from cqs_tpu.index.lexical import HostLexicalIndex
+        from cqs_tpu_torch.index.lexical import HostLexicalIndex
 
         try:
             lex = HostLexicalIndex.from_store(self.store)
@@ -530,7 +531,7 @@ class SearchEngine:
         cached = getattr(self, "_sig_index", None)
         if cached is not None and cached[0] == tok:
             return cached[1]
-        from cqs_tpu.index.lexical import SignatureIndex
+        from cqs_tpu_torch.index.lexical import SignatureIndex
 
         try:
             idx = SignatureIndex.from_store(self.store)
@@ -563,7 +564,7 @@ class SearchEngine:
                                      require_all=True) if struct_q else [])
             stem_leg: list = []
             if self.lim.stem_leg_weight > 0:
-                from cqs_tpu.search.synonyms import stem_prefix
+                from cqs_tpu_torch.search.synonyms import stem_prefix
 
                 if any(stem_prefix(t) for t in query.lower().split()):
                     stem_leg = lex.search(query, limit=depth, synonyms=syn,
@@ -600,7 +601,7 @@ class SearchEngine:
         # the exact legs.
         stem_leg: list = []
         if self.lim.stem_leg_weight > 0:
-            from cqs_tpu.search.synonyms import stem_prefix
+            from cqs_tpu_torch.search.synonyms import stem_prefix
 
             if any(stem_prefix(t) for t in query.lower().split()):
                 stem_leg = st.fts_search(query, limit=depth, synonyms=syn,
@@ -626,7 +627,7 @@ class SearchEngine:
         cached = self._code_masks.get(key)
         if cached is not None and cached[0] == gen:
             return cached[1]
-        from cqs_tpu.parser.types import NON_CODE_TYPES
+        from cqs_tpu_torch.parser.types import NON_CODE_TYPES
 
         q = ",".join("?" * len(NON_CODE_TYPES))
         mask = np.ones(index.count, dtype=np.int32)
@@ -724,8 +725,8 @@ class SearchEngine:
         has no FTS legs. Shared by the solo path and the micro-batcher so the
         two paths cannot drift.
         """
-        from cqs_tpu.search.router import LEXICAL_RRF_CATEGORIES
-        from cqs_tpu.search.synonyms import (BRIDGE, BRIDGE_CATEGORIES,
+        from cqs_tpu_torch.search.router import LEXICAL_RRF_CATEGORIES
+        from cqs_tpu_torch.search.synonyms import (BRIDGE, BRIDGE_CATEGORIES,
                                              sql_bridge_overlay)
 
         if not self.embedder.preset.lexical_tier:
@@ -745,12 +746,12 @@ class SearchEngine:
         core = struct_q = ""
         if (cls.category.value == "cross_language"
                 and self.lim.xlang_core_weight > 0):
-            from cqs_tpu.search.router import concept_core
+            from cqs_tpu_torch.search.router import concept_core
 
             core = concept_core(query)
         if (cls.category.value == "structural"
                 and self.lim.struct_and_weight > 0):
-            from cqs_tpu.search.router import structural_terms
+            from cqs_tpu_torch.search.router import structural_terms
 
             struct_q = structural_terms(query)
         return self._legs_pool.submit(self._fts_legs, query, depth,
@@ -764,7 +765,7 @@ class SearchEngine:
         """Post-device host pipeline: dedup, overlay merge, leg fusion/rescue,
         rerank, final full-row hydration. ONE implementation shared by the
         solo path and the micro-batcher (tests pin their bit-equivalence)."""
-        from cqs_tpu.search.scoring import rrf_tail_rescue
+        from cqs_tpu_torch.search.scoring import rrf_tail_rescue
 
         cands.sort(key=lambda c: (-c.final, c.row.id))
         cands = dedup_windows(
@@ -775,7 +776,7 @@ class SearchEngine:
         self._prefetch_digests([c.row.id for c in cands])
         cands = dedup_exact_duplicates(cands, digest_of=self._body_digest)
         if self.lim.impl_twin_demote:
-            from cqs_tpu.search.scoring import impl_twin_demote
+            from cqs_tpu_torch.search.scoring import impl_twin_demote
 
             impl_twin_demote(cands, self.lim.impl_twin_demote)
             cands.sort(key=lambda c: (-c.final, c.row.id))
@@ -810,7 +811,7 @@ class SearchEngine:
                     # yield. Stable within each class; ids carry the origin
                     # prefix so only the name-exemption check hydrates (and
                     # only the doc-origin rows, one batched SELECT).
-                    from cqs_tpu.search.scoring import (_DOC_ORIGIN_RE,
+                    from cqs_tpu_torch.search.scoring import (_DOC_ORIGIN_RE,
                                                         doc_demotion_exempt)
 
                     doc_ids = list({cid for leg in (fts, body, core_leg,
@@ -914,7 +915,7 @@ class SearchEngine:
                         # a single-token floor); the scored index drops df=0
                         # slots and ranks partial matches instead
                         # (index/lexical.py::SignatureIndex).
-                        from cqs_tpu.search.router import sig_slots
+                        from cqs_tpu_torch.search.router import sig_slots
 
                         sig_idx = self._get_sig_index()
                         slots = sig_slots(query) if sig_idx is not None else []
@@ -1024,13 +1025,13 @@ class SearchEngine:
         if self.lim.same_name_collapse:
             # after every reordering (rescue/rerank) so the collapse keys the
             # final ranks; keep-first makes it monotone-safe for recall
-            from cqs_tpu.search.scoring import collapse_same_name
+            from cqs_tpu_torch.search.scoring import collapse_same_name
 
             cands = collapse_same_name(cands)
         if self.lim.canonical_twin_collapse:
             # markdown fence twins fold into the code they quote (and the
             # code row inherits a higher-ranked quotation's slot)
-            from cqs_tpu.search.scoring import collapse_canonical_twins
+            from cqs_tpu_torch.search.scoring import collapse_canonical_twins
 
             cands = collapse_canonical_twins(cands, self._get_canon_map().get)
 
@@ -1083,7 +1084,7 @@ class SearchEngine:
             # default code-only search: non-code rows leave the legs entirely
             # (leg RANKS then count only code rows — stronger than the
             # doc-demotion stable partition, which this supersedes here)
-            from cqs_tpu.parser.types import NON_CODE_TYPES
+            from cqs_tpu_torch.parser.types import NON_CODE_TYPES
 
             drop = {rid for rid, row in parent_rows.items()
                     if row.chunk_type in NON_CODE_TYPES}
@@ -1120,7 +1121,7 @@ class SearchEngine:
     def _alpha_overrides(self) -> dict[str, float]:
         """Config overrides, seeded with lexical-tier adjustments when the
         embedder is the hash family (see router.LEXICAL_ALPHA_OVERRIDES)."""
-        from cqs_tpu.search.router import LEXICAL_ALPHA_OVERRIDES
+        from cqs_tpu_torch.search.router import LEXICAL_ALPHA_OVERRIDES
 
         overrides: dict[str, float] = {}
         if self.embedder.preset.lexical_tier:

@@ -14,10 +14,10 @@ import torch
 
 from cqs_tpu.index.dense import DenseIndex as JDense
 from cqs_tpu.index.sparse import SpladeIndex as JSplade
-from cqs_tpu.index.stamp import Stamp, StampMismatch
+from cqs_tpu.index.stamp import Stamp as JStamp
 from cqs_tpu.models.embedder import Embedder as JEmbedder
 from cqs_tpu.models.splade import SpladeEncoder as JSplade_enc
-from cqs_tpu_torch.index import DenseIndex, SpladeIndex
+from cqs_tpu_torch.index import DenseIndex, SpladeIndex, Stamp, StampMismatch
 from cqs_tpu_torch.models import Embedder, SpladeEncoder
 from cqs_tpu_torch.models.convert import embedder_params_from_jax
 from cqs_tpu_torch.models.hash_table import normal_table, random_bits
@@ -38,8 +38,10 @@ def _sparse_data(rng, n):
     return ids, w
 
 
-def _stamp(n, kind="dense", dim=64):
-    return Stamp(model_fingerprint="fp", dim=dim, chunk_count=n, generation=1, kind=kind)
+def _stamp(n, kind="dense", dim=64, cls=Stamp):
+    """The port's stamp; ``cls=JStamp`` for the reference's (each package's
+    indexes compare stamps of their own class)."""
+    return cls(model_fingerprint="fp", dim=dim, chunk_count=n, generation=1, kind=kind)
 
 
 def _bf16_bits(x):
@@ -65,7 +67,7 @@ def _assert_sparse_equal(port, ref):
 def test_dense_padded_arrays_equal(seeded_rng, n):
     ids, mat = _dense_data(seeded_rng, n)
     port = DenseIndex(ids, mat, _stamp(n), device="cpu")
-    ref = JDense(ids, mat, _stamp(n))
+    ref = JDense(ids, mat, _stamp(n, cls=JStamp))
     assert port.capacity == ref.capacity
     _assert_dense_equal(port, ref)
 
@@ -75,7 +77,7 @@ def test_sparse_padded_arrays_equal(seeded_rng, n):
     ids = [f"c{i}" for i in range(n)]
     t_ids, t_w = _sparse_data(seeded_rng, n)
     port = SpladeIndex(ids, t_ids, t_w, V, _stamp(n, "splade", V), device="cpu")
-    ref = JSplade(ids, t_ids, t_w, V, _stamp(n, "splade", V))
+    ref = JSplade(ids, t_ids, t_w, V, _stamp(n, "splade", V, cls=JStamp))
     _assert_sparse_equal(port, ref)
 
 
@@ -83,14 +85,14 @@ def test_npz_round_trip_both_ways(seeded_rng, tmp_path):
     n = 300
     ids, mat = _dense_data(seeded_rng, n)
     t_ids, t_w = _sparse_data(seeded_rng, n)
-    JDense(ids, mat, _stamp(n)).save(tmp_path / "j_dense.npz")
+    JDense(ids, mat, _stamp(n, cls=JStamp)).save(tmp_path / "j_dense.npz")
     DenseIndex(ids, mat, _stamp(n), device="cpu").save(tmp_path / "t_dense.npz")
-    JSplade(ids, t_ids, t_w, V, _stamp(n, "splade", V)).save(tmp_path / "j_sp.npz")
+    JSplade(ids, t_ids, t_w, V, _stamp(n, "splade", V, cls=JStamp)).save(tmp_path / "j_sp.npz")
     SpladeIndex(ids, t_ids, t_w, V, _stamp(n, "splade", V), device="cpu").save(
         tmp_path / "t_sp.npz")
     for name in ("j_dense", "t_dense"):
         port = DenseIndex.load(tmp_path / f"{name}.npz", expect=_stamp(n), device="cpu")
-        ref = JDense.load(tmp_path / f"{name}.npz", expect=_stamp(n))
+        ref = JDense.load(tmp_path / f"{name}.npz", expect=_stamp(n, cls=JStamp))
         _assert_dense_equal(port, ref)
     for name in ("j_sp", "t_sp"):
         port = SpladeIndex.load(tmp_path / f"{name}.npz", device="cpu")
@@ -104,9 +106,9 @@ def test_append_and_remove_match(seeded_rng):
     ids, mat = _dense_data(seeded_rng, 120)
     t_ids, t_w = _sparse_data(seeded_rng, 120)
     pd, rd = (DenseIndex(ids[:100], mat[:100], _stamp(100), device="cpu"),
-              JDense(ids[:100], mat[:100], _stamp(100)))
+              JDense(ids[:100], mat[:100], _stamp(100, cls=JStamp)))
     ps, rs = (SpladeIndex(ids[:100], t_ids[:100], t_w[:100], V, _stamp(100), device="cpu"),
-              JSplade(ids[:100], t_ids[:100], t_w[:100], V, _stamp(100)))
+              JSplade(ids[:100], t_ids[:100], t_w[:100], V, _stamp(100, cls=JStamp)))
     before = pd.matrix
     for idx in (pd, rd):
         idx.append(ids[100:], mat[100:])

@@ -19,9 +19,9 @@ from jax.experimental.pallas import tpu as pltpu
 import cqs_tpu.search.program as jprog
 from cqs_tpu.index.dense import DenseIndex as JDense
 from cqs_tpu.index.sparse import SpladeIndex as JSplade
-from cqs_tpu.index.stamp import Stamp
+from cqs_tpu.index.stamp import Stamp as JStamp
 from cqs_tpu.ops.topk import topk_pallas
-from cqs_tpu_torch.index import DenseIndex, SpladeIndex
+from cqs_tpu_torch.index import DenseIndex, SpladeIndex, Stamp
 from cqs_tpu_torch.ops.sparse import build_doc_sketch
 from cqs_tpu_torch.ops.topk import (
     KERNELS, LOOP_I8, check_kernel_args, scan_query, scan_topk, scan_topk_plain_grouped,
@@ -245,12 +245,13 @@ def _indexes(rng, n=300, d=32, s=128):
     mat[:4, 0] = 10.0                                         # large components
     doc_ids = rng.integers(1, V, size=(n, T)).astype(np.int32)
     doc_w = rng.random((n, T)).astype(np.float32)
-    stamp = Stamp(model_fingerprint="test", dim=d, chunk_count=n, generation=0)
+    fields = dict(model_fingerprint="test", dim=d, chunk_count=n, generation=0)
+    stamp, jstamp = Stamp(**fields), JStamp(**fields)   # each package's own class
     port = (DenseIndex(ids, mat, stamp, device="cpu", pad_multiple=512),
             SpladeIndex(ids, doc_ids, doc_w, V, stamp, device="cpu", pad_multiple=512,
                         sketch_dim=s))
-    ref = (JDense(ids, mat, stamp, pad_multiple=512),
-           JSplade(ids, doc_ids, doc_w, V, stamp, pad_multiple=512, sketch_dim=s))
+    ref = (JDense(ids, mat, jstamp, pad_multiple=512),
+           JSplade(ids, doc_ids, doc_w, V, jstamp, pad_multiple=512, sketch_dim=s))
     return port, ref
 
 

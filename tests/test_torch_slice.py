@@ -144,7 +144,8 @@ def test_batcher_batched_equals_solo(tmp_project):
 @pytest.mark.parametrize("block_jax", [True, False])
 def test_no_jax_subprocess(tmp_project, block_jax):
     # blocked: a machine without JAX; not blocked: JAX installed, as on the
-    # card's machine, where the port must still never import it
+    # card's machine, where the port must still never import it; in both,
+    # the port imports no module of the JAX package
     block = 'sys.modules["jax"] = sys.modules["flax"] = sys.modules["optax"] = None'
     code = textwrap.dedent(f"""
         import sys
@@ -155,13 +156,13 @@ def test_no_jax_subprocess(tmp_project, block_jax):
         root = {str(tmp_project)!r}
         assert main(["index", "--path", root, "--device", "cpu"]) == 0
         assert main(["validate token", "--path", root, "--device", "cpu", "--json"]) == 0
-        loaded = [m for m, v in sys.modules.items()
-                  if v is not None and m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")]
+        loaded = [m for m, v in sys.modules.items() if v is not None
+                  and m.split(".")[0] in ("cqs_tpu", "jax", "jaxlib", "flax", "optax")]
         assert not loaded, loaded
         print("NO_JAX_OK")
     """)
     if not block_jax:
-        # the reference package still resolves its package-level names
+        # the reference package still imports beside the port
         code += "from cqs_tpu.search import SearchEngine; print(SearchEngine.__name__)\n"
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(REPO)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))

@@ -1,0 +1,293 @@
+"""The port stands alone: it imports nothing of ``cqs_tpu``, keeps its own
+copies of the reference's host modules (pinned to them here), and shares
+the on-disk format with the reference, so either package opens the other's
+index.
+
+Tolerances: none; every comparison here is exact."""
+
+import ast
+import dataclasses
+import enum
+import os
+import re
+import shutil
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import cqs_tpu.models.tokenizer as j_tok
+import cqs_tpu.search.router as j_router
+import cqs_tpu.store.schema as j_schema
+from cqs_tpu.nl import generate_nl as j_generate_nl
+from cqs_tpu.parser import parse_file as j_parse_file
+from cqs_tpu.parser.types import PARSER_VERSION as J_PARSER_VERSION
+from cqs_tpu.pipeline import run_index_pipeline as j_index
+from cqs_tpu.store import Store as JStore
+from cqs_tpu.cli.context import CommandContext as JContext
+import cqs_tpu_torch.models.tokenizer as t_tok
+import cqs_tpu_torch.native as t_native
+import cqs_tpu_torch.search.router as t_router
+import cqs_tpu_torch.store.schema as t_schema
+from cqs_tpu_torch.cli.main import main
+from cqs_tpu_torch.nl import generate_nl
+from cqs_tpu_torch.parser import parse_file
+from cqs_tpu_torch.parser.types import PARSER_VERSION
+from cqs_tpu_torch.store import Store
+
+REPO = Path(__file__).resolve().parent.parent
+REF = REPO / "cqs_tpu"
+PORT = REPO / "cqs_tpu_torch"
+
+#: Host modules the port keeps as copies of the reference's, at the same
+#: relative path; only ``cqs_tpu.`` is renamed ``cqs_tpu_torch.`` in them.
+COPIES = (
+    "utils/hashing.py", "utils/text.py", "utils/trace.py", "utils/walk.py", "utils/__init__.py",
+    "config.py", "data/classifier_centroids.v1.json",
+    "parser/types.py", "parser/registry.py", "parser/generic.py", "parser/python_ast.py",
+    "parser/docs.py", "parser/web.py", "parser/__init__.py",
+    "nl/__init__.py",
+    "store/schema.py", "store/migrations.py", "store/slots.py", "store/cache.py",
+    "store/lock.py", "store/store.py", "store/__init__.py",
+    "models/tokenizer.py", "models/registry.py",
+    "index/stamp.py", "index/lexical.py",
+    "search/synonyms.py", "search/router.py", "search/scoring.py",
+    "cli/envelope.py",
+)
+#: Modules at a reference path that are ports, not copies: they run the
+#: device work on PyTorch, or (``native/__init__.py``, the one exception to
+#: the drift check) build the tokenizer's C++ from the port's own copy into
+#: the port's ``_build/`` rather than into the reference's directory.
+PORTED = (
+    "__init__.py", "__main__.py", "pipeline.py", "cli/__init__.py", "cli/context.py",
+    "cli/main.py", "daemon/__init__.py", "daemon/batcher.py", "index/__init__.py",
+    "index/dense.py", "index/sparse.py", "models/__init__.py", "models/embedder.py",
+    "models/splade.py", "native/__init__.py", "ops/__init__.py", "ops/fusion.py",
+    "ops/sparse.py", "ops/topk.py", "search/__init__.py", "search/engine.py",
+    "search/program.py",
+)
+
+
+def reference_imports(source: str) -> list[str]:
+    """Names of ``cqs_tpu`` modules a Python source imports: import
+    statements at any depth, and ``importlib.import_module`` or
+    ``__import__`` of a literal name. ``cqs_tpu_torch`` is not one."""
+    def is_ref(name) -> bool:
+        return isinstance(name, str) and (name == "cqs_tpu" or name.startswith("cqs_tpu."))
+
+    found = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            found += [a.name for a in node.names if is_ref(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and is_ref(node.module):
+            found.append(node.module)
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant) and is_ref(node.args[0].value)
+              and (getattr(node.func, "attr", None) == "import_module"
+                   or getattr(node.func, "id", None) == "__import__")):
+            found.append(node.args[0].value)
+    return found
+
+
+PORT_SOURCES = sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py")
+                      if "_build" not in p.parts) + ["chip_smoke.py", "scripts/torch_ab.py"]
+
+
+@pytest.mark.parametrize("rel", PORT_SOURCES)
+def test_no_import_of_reference(rel):
+    assert reference_imports((REPO / rel).read_text()) == []
+
+
+def test_import_scan_matches_only_the_reference():
+    src = textwrap.dedent("""
+        import cqs_tpu_torch.config
+        from cqs_tpu_torch import native
+        import os, cqs_tpu
+        def f():
+            from cqs_tpu.store import Store
+            import importlib
+            importlib.import_module("cqs_tpu.search")
+            __import__("cqs_tpu_torch.search")
+    """)
+    assert reference_imports(src) == ["cqs_tpu", "cqs_tpu.store", "cqs_tpu.search"]
+
+
+@pytest.mark.parametrize("rel", COPIES + ("native/fastscan.cpp",))
+def test_copy_matches_reference(rel):
+    port = PORT / rel
+    ref = REPO / "native" / "fastscan.cpp" if rel == "native/fastscan.cpp" else REF / rel
+    if rel.endswith(".py"):
+        assert port.read_text() == re.sub(r"\bcqs_tpu\.", "cqs_tpu_torch.", ref.read_text())
+    else:
+        assert port.read_bytes() == ref.read_bytes()
+
+
+def test_every_module_is_a_copy_or_a_port():
+    twins = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")
+             if "_build" not in p.parts and (REF / p.relative_to(PORT)).is_file()}
+    assert twins == set(c for c in COPIES if c.endswith(".py")) | set(PORTED)
+
+
+def test_on_disk_format_versions_shared():
+    assert t_schema.SCHEMA_VERSION == j_schema.SCHEMA_VERSION
+    assert PARSER_VERSION == J_PARSER_VERSION
+    assert t_tok.TOKENIZER_VERSION == j_tok.TOKENIZER_VERSION
+
+
+def test_port_runs_alone_from_a_copy(tmp_project, tmp_path):
+    # both packages copied to a directory of their own, without built
+    # libraries: the port indexes and searches, and must neither import the
+    # reference nor write under it (the tokenizer's library goes to the
+    # port's _build/)
+    pkgs = tmp_path / "pkgs"
+    ignore = shutil.ignore_patterns("__pycache__", "_build", "*.so", "*.srchash")
+    for name in ("cqs_tpu", "cqs_tpu_torch"):
+        shutil.copytree(REPO / name, pkgs / name, ignore=ignore)
+    code = textwrap.dedent(f"""
+        import sys
+        from pathlib import Path
+        pkgs = Path({str(pkgs)!r})
+        def files():
+            return {{str(p): (p.stat().st_size, p.stat().st_mtime_ns)
+                    for p in (pkgs / "cqs_tpu").rglob("*")
+                    if p.is_file() and "__pycache__" not in p.parts}}
+        before = files()
+        import torch
+        torch.set_num_threads(1)
+        import cqs_tpu_torch
+        from cqs_tpu_torch.cli.main import main
+        assert Path(cqs_tpu_torch.__file__).parent == pkgs / "cqs_tpu_torch"
+        root = {str(tmp_project)!r}
+        assert main(["index", "--path", root, "--device", "cpu"]) == 0
+        assert main(["validate token", "--path", root, "--device", "cpu", "--json"]) == 0
+        loaded = [m for m, v in sys.modules.items() if v is not None
+                  and m.split(".")[0] in ("cqs_tpu", "jax", "jaxlib", "flax", "optax")]
+        assert not loaded, loaded
+        assert files() == before, "files under cqs_tpu/ changed"
+        print("STANDALONE_OK")
+    """)
+    path = [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+            if p and Path(p).resolve() != REPO]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(pkgs)] + path))
+    env.pop("CQST_DISABLE_NATIVE", None)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=tmp_path, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "STANDALONE_OK" in proc.stdout and '"command":"search"' in proc.stdout
+    if shutil.which("g++"):
+        assert (pkgs / "cqs_tpu_torch" / "_build" / "native" / "libfastscan.so").is_file()
+    assert not list((pkgs / "cqs_tpu").rglob("*.so"))
+
+
+def _plain(x):
+    """A value with the package's classes taken out: dataclasses become
+    dicts of their fields, enums their values."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return {f.name: _plain(getattr(x, f.name)) for f in dataclasses.fields(x)}
+    if isinstance(x, enum.Enum):
+        return x.value
+    if isinstance(x, (list, tuple)):
+        return [_plain(v) for v in x]
+    return x
+
+
+@pytest.mark.parametrize("subdir", ["cqs_tpu/parser", "cqs_tpu/search", "docs", "native"])
+def test_parse_and_nl_agree(subdir):
+    files = sorted(p for p in (REPO / subdir).rglob("*") if p.is_file()
+                   and "__pycache__" not in p.parts and p.suffix not in (".so", ".srchash"))
+    n_chunks = 0
+    for path in files:
+        port, ref = parse_file(path, root=REPO), j_parse_file(path, root=REPO)
+        assert (port is None) == (ref is None), path
+        if port is None:
+            continue
+        assert _plain(port) == _plain(ref), path
+        assert [generate_nl(c) for c in port.chunks] == [j_generate_nl(c) for c in ref.chunks]
+        n_chunks += len(port.chunks)
+    assert n_chunks > 0
+
+
+ROUTER_QUERIES = [
+    "validate token", "fn cmd_audit_mode", "how does the store upsert chunks",
+    "functions that call parse_file", "retry with exponential backoff in rust",
+    "struct Config", "error handling without panics", "def generate_nl",
+    "what implements the Embedder trait", "sort a list of integers", "TODO",
+    "class HashTokenizer", "read config from toml file",
+]
+
+
+@pytest.mark.parametrize("query", ROUTER_QUERIES)
+def test_router_classification_and_alpha_agree(query):
+    port, ref = t_router.classify_query(query), j_router.classify_query(query)
+    assert _plain(port) == _plain(ref)
+    assert t_router.resolve_alpha(port) == j_router.resolve_alpha(ref)
+    assert t_router.structural_terms(query) == j_router.structural_terms(query)
+    assert t_router.sig_slots(query) == j_router.sig_slots(query)
+
+
+TOKENIZER_TEXTS = [p.read_text() for p in sorted((REF / "search").glob("*.py"))] + [
+    "validate_token(decodeJwt(x)) -> bool", "unicode: café naïve", ""]
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_tokenizer_ids_agree(monkeypatch, native):
+    # each package's native library, then each package's pure-Python path
+    if not native:
+        monkeypatch.setenv("CQST_DISABLE_NATIVE", "1")
+        assert t_native.get_lib() is None
+    port, ref = t_tok.HashTokenizer(), j_tok.HashTokenizer()
+    for text in TOKENIZER_TEXTS:
+        got, want = port.encode(text, 512), ref.encode(text, 512)
+        np.testing.assert_array_equal(got.ids, want.ids)
+        np.testing.assert_array_equal(got.mask, want.mask)
+
+
+def test_port_native_tokenizer_matches_python():
+    # the reference's equivalence cases (tests/test_native.py), through the
+    # port's own library
+    if t_native.get_lib() is None:
+        pytest.skip("no C++ toolchain to build the port's tokenizer library")
+    assert t_native._LIB.parent == PORT / "_build" / "native"
+    tok = t_tok.HashTokenizer(vocab_size=32768)
+    for text in ["validate the bearer token", "HnswIndex::search_filtered(query, k)",
+                 "parseJSONFast HTTPServer camelCase snake_case",
+                 "retried retrying retries validated", "x = foo.bar(1, 2); // comment",
+                 "123 456abc _private __dunder__", "", "unicode: café naïve"]:
+        python = np.asarray([tok._tok_id(w) for w in tok.tokenize_words(text)], np.int32)
+        np.testing.assert_array_equal(t_native.tokenize_hash(text, 32768, 4096), python)
+
+
+def _rows(store_cls, index_dir):
+    store = store_cls.open(index_dir, readonly=True)
+    try:
+        rows = sorted((_plain(r) for r in store.iter_chunks()), key=lambda r: r["id"])
+        hits = [cid for cid, _ in store.fts_search("validate token", limit=10)]
+        return rows, hits, store.chunk_count()
+    finally:
+        store.close()
+
+
+def test_store_opens_in_either_package(tmp_project):
+    # named after this test's project: tmp_project.parent is shared by every
+    # test that runs in one worker
+    port_root = tmp_project.parent / f"{tmp_project.name}_port_copy"
+    shutil.copytree(tmp_project, port_root)
+    jctx = JContext.create(str(tmp_project))
+    try:
+        j_index(jctx.root, jctx.store, jctx.embedder, jctx._maybe_splade(), config=jctx.config)
+    finally:
+        jctx.close()
+    assert main(["index", "--path", str(port_root), "--device", "cpu"]) == 0
+    ref_dir, port_dir = tmp_project / ".cqs-tpu", port_root / ".cqs-tpu"
+    # each store read through the other package's Store, and through its own
+    ref_by_port, ref_by_ref = _rows(Store, ref_dir), _rows(JStore, ref_dir)
+    port_by_ref, port_by_port = _rows(JStore, port_dir), _rows(Store, port_dir)
+    assert ref_by_port == ref_by_ref and port_by_ref == port_by_port
+    assert ref_by_port[2] > 10 and ref_by_port[1]
+    # the two indexes of one project hold the same chunks (rowids aside)
+    def content(rows):
+        return [{k: v for k, v in r.items() if k != "rowid"} for r in rows[0]]
+    assert content(ref_by_port) == content(port_by_ref)

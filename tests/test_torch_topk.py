@@ -5,6 +5,9 @@ stable top-k tie order, and the kernel wrapper's argument checks.
 Tolerances: values rtol 1e-5 (f32 sums taken in another order); rows exact
 (the adversarial cases have exact scores, the random ones no near-ties)."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,9 +17,9 @@ from jax.experimental.pallas import tpu as pltpu
 from cqs_tpu.ops.topk import topk_pallas, topk_xla
 from cqs_tpu_torch.ops.fusion import NEG, stable_topk
 from cqs_tpu_torch.ops.topk import (
-    GROUPED, GROUPED_I8W, LOOP, MAX_DIM, MMA_MAX_TILE, MMA_QUERY_BLOCKS, MmaScanKernel,
-    check_kernel_args, merge_tiles, mma_query_block, scan_topk, scan_topk_plain_grouped,
-    scan_topk_plain_loop, topk_plain,
+    GROUPED, GROUPED_I8, GROUPED_I8W, KERNELS, LOOP, MAX_DIM, MMA_MAX_TILE, MMA_QUERY_BLOCKS,
+    MmaScanKernel, check_kernel_args, merge_tiles, mma_query_block, scan_topk,
+    scan_topk_plain_grouped, scan_topk_plain_loop, topk_plain,
 )
 
 torch.set_num_threads(1)
@@ -226,24 +229,41 @@ def test_mma_query_block_covers_every_batch():
     assert -(-128 // mma_query_block(128)) <= 2           # a tile is read at most twice
 
 
-@pytest.mark.parametrize("kind", ["bf16", "i8w"])
+@pytest.mark.parametrize("kind", ["bf16", "i8w", "i8"])
 def test_mma_kernel_widths_unchanged(kind):
     # the grouped kernels take bf16 widths in multiples of 8 and int8
     # widths in multiples of 16, up to 4096, as before the tensor-core kernel
     dtype, step = (torch.bfloat16, 8) if kind == "bf16" else (torch.int8, 16)
+    qdtype = torch.int8 if kind == "i8" else torch.bfloat16
     for d in range(step, MAX_DIM + 1, step):
         index, _, mask = _kargs(d=d, dtype=dtype)
-        q = torch.zeros(2, d, dtype=torch.bfloat16)
+        q = torch.zeros(2, d, dtype=qdtype)
         assert check_kernel_args(index, q, mask, 128, 4, grouped=True) == kind
     for d in (step // 2, step + step // 2, MAX_DIM + step):
         index, _, mask = _kargs(d=d, dtype=dtype)
         with pytest.raises(ValueError):
-            check_kernel_args(index, torch.zeros(2, d, dtype=torch.bfloat16), mask, 128, 4,
+            check_kernel_args(index, torch.zeros(2, d, dtype=qdtype), mask, 128, 4,
                               grouped=True)
-    kernel = GROUPED if kind == "bf16" else GROUPED_I8W
+    kernel = {"bf16": GROUPED, "i8w": GROUPED_I8W, "i8": GROUPED_I8}[kind]
     assert isinstance(kernel, MmaScanKernel) and kernel.source.endswith("scan_topk_mma.cu")
     with pytest.raises(ValueError):
         kernel.query_block(None, 128, 1024, 2 * MMA_MAX_TILE)
+
+
+def test_grouped_i8_query_block_and_entry_point():
+    # int8 x int8 runs in the tensor-core kernel's query blocks, at the
+    # programs' tiles (q8 2048, sk8 4096, the screen 16384), through a C
+    # entry point with the scan signature of the other tensor-core kinds
+    for b in (1, 3, 8, 9, 40, 64, 65, 128, 300):
+        for tile in (128, 2048, 4096, 16384):
+            assert GROUPED_I8.query_block(None, b, 1024, tile) == mma_query_block(b)
+    assert GROUPED_I8.symbol == "cqs_scan_topk_grouped_i8"
+    repo = Path(__file__).resolve().parents[1]
+    for k in (k for k in KERNELS if isinstance(k, MmaScanKernel)):
+        sig = re.search(rf"int {k.symbol}\(([^)]*)\)", (repo / k.source).read_text())
+        assert sig, k.symbol
+        args = [a.split()[-1].lstrip("*") for a in sig.group(1).split(",")]
+        assert args[-2:] == ["qb", "stream"] and len(args) == 12, (k.symbol, args)
 
 
 def test_wrapper_raises_on_cpu_tensor_and_bad_shapes():
