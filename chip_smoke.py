@@ -7,26 +7,36 @@ Phases, each fatal on error (non-zero exit, no result line):
 
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
 2. build: the CUDA kernels from ``cqs_tpu_torch/csrc`` (timed);
-3. kernels: each of the six kernels against its plain PyTorch twin on the
-   card, on the adversarial cases of the reference's op tests and at the
-   programs' shapes, with both times. bf16: row widths 256 and 1024, tile
-   2048, B 1/8/128, m 4/16/64, 4096 and 1,048,576 rows. int8 x int8 and
-   int8-widened: 1,048,576 rows of width 256 and 1024, tiles 2048 and 4096,
-   B 1/8/128, m 4/16, and tile 16384 x 256 at B=1; the int8 x int8 grouped
-   kernel beside ``torch._int_mm`` on the same score product (not the same
-   function). The three tensor-core grouped kernels also where an MMA
-   design breaks: widths 24 (bf16), 48 (int8 widened) and 16/48/1024/4096
-   (int8 x int8), not multiples of 16 or of the K-chunk; B 1, 3, 65 and 128; tiles 128 (one row a group) to 16384;
-   m up to 128. int8 x int8 must equal its twin exactly, slot for slot; the
-   others within a score near-tie;
+3. kernels: each of the eight kernels (the six branches of the two Pallas
+   bodies; the bf16 and int8 x int8 loop branches each as the split
+   tensor-core kernel and the CUDA-core template it routes to) against its
+   plain PyTorch twin on the card, on the adversarial cases of the
+   reference's op tests and at the programs' shapes, with both times. The
+   split loop kernel at the main path's shapes (4,096 rows, tile 2048, m
+   64: B 1/8/64/128; 65,536 rows, m 32, B 64; 1,048,576 rows: B=1 m 4 and
+   B=128 m 64; int8 also the screened scan, tile 16384 x 256, B=1, m 16),
+   timed in turns with the template at the same shape and, for bf16,
+   beside ``torch.matmul`` on the score product (not the same function);
+   int8 x int8 and int8-widened: 1,048,576 rows of width 256 and 1024,
+   tiles 2048 and 4096, B 1/8/128, m 4/16; the int8 x int8 grouped kernel
+   beside ``torch._int_mm`` on the same score product (not the same
+   function). The tensor-core kernels also where an MMA design breaks:
+   widths 16/24/48/256/1024/4096, not multiples of 16 or of the K-chunk; B
+   1, 3, 64, 65 and 128; tiles 128 (one row a group, one slice) to 16384;
+   m up to 128, a fully masked tile. int8 x int8 (and integer-valued bf16)
+   must equal the twin exactly, slot for slot; random bf16 within a score
+   near-tie;
 4. e2e: index a copy of this repository's sources through the port's CLI,
    answer searches through it and the engine, then a paused burst through
    the ``QueryBatcher`` whose results must equal the solo ones; once with
    the default knobs, then with ``scan_q8=1`` (q8) and ``scan_q8=2`` (sk8)
    at ``scan_q8_min_rows`` 1024 (solo and batched) and ``screen_enable=1``
    at ``screen_min_rows`` 1024 (solo; the screened program is B=1 only);
-5. scale: a synthetic 1,048,576-row index at the hash tier's widths (seeded
-   numpy): ``hybrid_query`` at B=1 and ``hybrid_query_batch`` at B=128, the
+5. scale: a daemon-sized synthetic index (65,536 rows, the bf16 batch
+   program at B=64, which scans with the split loop kernel: wall and
+   device-busy time), then a synthetic 1,048,576-row index at the hash
+   tier's widths (seeded numpy): ``hybrid_query`` at B=1 and
+   ``hybrid_query_batch`` at B=128, the
    q8 and sk8 programs at B=1 and B=128, the screened program (int8 and proj
    screens) at B=1, the int8 quantization of the index, and a direct
    ``scan_topk`` over the int8 rows with a bf16 query (the widening kernels'
@@ -34,13 +44,17 @@ Phases, each fatal on error (non-zero exit, no result line):
    scan.
 
 The kernels' launch counters are zeroed before phase 4 and read after
-phase 5; a kernel that did not launch there fails the run, and so does a
-widening kernel that did not launch in phase 3, and so does any module of
-JAX or of the JAX package (``cqs_tpu``) in ``sys.modules`` at the end. The
-third-to-last line is a JSON object with each kernel's launches, error,
-times, bound and library time; then the card's name and power limit; the
-last is ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits
-non-zero without one or outside a checkout of the repository.
+phase 5; a branch wrapper that did not launch there fails the run, and so
+does a split loop kernel that did not, a search of phase 4 whose solo or
+batched program did not launch the split kernel, a widening kernel that
+did not launch in phase 3, and any module of JAX or of the JAX package
+(``cqs_tpu``) in ``sys.modules`` at the end. The CUDA-core template's bf16
+and int8 x int8 instances serve only m > 128 and tiles that are not whole
+128-row sub-tiles, which no program launches. The third-to-last line is a
+JSON object with each kernel's launches, error, times, bound and library
+time; then the card's name and power limit; the last is ``{"ok": true,
+"device": {...}}``. Needs one CUDA card; exits non-zero without one or
+outside a checkout of the repository.
 """
 
 from __future__ import annotations
@@ -101,7 +115,24 @@ PEAK_OPS_S = {"i8": 1979e12, "bf16": 989e12, "i8w": 989e12}
 #: the one PyTorch call timed beside a kernel as ``library_ms``, where there
 #: is one; no single call computes a scan with a per-tile top-m
 LIBRARY_CALLS = {"scan_topk_grouped_i8": "torch._int_mm: the score product only, "
+                 "not the same function",
+                 "scan_topk_loop_split": "torch.matmul: the bf16 score product only, "
                  "not the same function"}
+#: (rows, width, tile, B, m) of each kernel's entry on the kernels line: the
+#: split loop kernel at a repository-size solo query's sketch scan (bf16)
+#: and at the screened program's scan (int8); the templates at 1,048,576 x
+#: 1024 B=1 m 4, timed in turns with the split kernel there (no program
+#: routes to them); the grouped kernels at their B=128 sketch scan
+KERNEL_CASES = {
+    "scan_topk_loop_split": (4096, 1024, 2048, 1, 64),
+    "scan_topk_loop_cc": (SCALE_ROWS, 1024, 2048, 1, 4),
+    "scan_topk_grouped": (SCALE_ROWS, 1024, 2048, 128, 4),
+    "scan_topk_loop_split_i8": (SCALE_ROWS, 256, 16384, 1, 16),
+    "scan_topk_loop_i8_cc": (SCALE_ROWS, 1024, 2048, 1, 4),
+    "scan_topk_grouped_i8": (SCALE_ROWS, 1024, 2048, 128, 4),
+    "scan_topk_loop_i8w": (SCALE_ROWS, 1024, 2048, 1, 4),
+    "scan_topk_grouped_i8w": (SCALE_ROWS, 1024, 2048, 128, 4),
+}
 
 
 def bound_ms(kind: str, n: int, d: int, b: int, tile: int, m: int) -> tuple[float, str]:
@@ -182,6 +213,65 @@ def check_grouped_i8(torch, dev, seed: int) -> int:
     return cases
 
 
+def check_loop_split(torch, dev, seed: int) -> int:
+    """The split loop kernel's two kinds slot for slot equal to the loop
+    twin where the design breaks: int8 x int8 (full range, -128 included)
+    and bf16 on integer values (exact f32 sums in any order, many ties);
+    widths 16/48/256/1024/4096; B 1, 3, 64, 65, 128 (query blocks 8 and 64,
+    a second block); tiles 128, 2048 and 16384 (1 to 16 slices, so the
+    merge kernel runs); m 4/16/64/128 (m 128 on 128-row tiles: m equal to a
+    slice, and slots past a tile's valid rows); 2% of rows masked, and rows
+    4096-6143, a fully masked tile at tiles up to 2048. Own generator.
+    Returns the number of cases."""
+    from cqs_tpu_torch.ops.topk import LOOP_SPLIT, LOOP_SPLIT_I8, scan_topk_plain_loop
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 7919)
+    n, cases = 32768, 0
+    for kernel in (LOOP_SPLIT_I8, LOOP_SPLIT):
+        for d in (16, 48, 256, 1024, 4096):
+            if kernel is LOOP_SPLIT_I8:
+                index = torch.randint(-128, 128, (n, d), device=dev, generator=gen,
+                                      dtype=torch.int8)
+            else:
+                index = torch.randint(-8, 9, (n, d), device=dev, generator=gen).to(torch.bfloat16)
+            mask = (torch.rand(n, device=dev, generator=gen) > 0.02).to(torch.int32)
+            mask[4096:6144] = 0
+            for b in (1, 3, 64, 65, 128):
+                if kernel is LOOP_SPLIT_I8:
+                    q = torch.randint(-128, 128, (b, d), device=dev, generator=gen,
+                                      dtype=torch.int8)
+                else:
+                    q = torch.randint(-3, 4, (b, d), device=dev, generator=gen).to(torch.bfloat16)
+                for tile in (128, 2048, 16384):
+                    for m in (4, 16, 64, 128):
+                        compare_exact(kernel, scan_topk_plain_loop, index, q, mask, tile, m,
+                                      f"{kernel.name} d={d} b={b} tile={tile} m={m}")
+                        cases += 1
+            del index, mask
+    return cases
+
+
+def device_busy(torch, fn, calls: int = 5) -> tuple[float, dict]:
+    """Device-busy milliseconds per call of fn (``torch.profiler`` kernel
+    time over ``calls`` calls after a warm-up call) and the per-call time of
+    each kernel by name. The host's launch rate does not move it, unlike
+    wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in prof.key_averages():
+        dev_us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if getattr(getattr(e, "device_type", None), "name", "") == "CUDA" and dev_us:
+            by_kernel[e.key[:60]] = dev_us / calls / 1e3
+    return sum(by_kernel.values()), by_kernel
+
+
 def adversarial_cases(torch, dev, rng):
     """bf16 twins of the reference's Pallas op tests (tests/test_ops.py)."""
     import numpy as np
@@ -252,14 +342,14 @@ def int8_cases(torch, dev, rng):
 
 
 def phase_kernels(torch, dev, rng, seed, report):
-    from cqs_tpu_torch.ops.topk import (GROUPED, GROUPED_I8, GROUPED_I8W, KERNELS, LOOP,
-                                        LOOP_I8, LOOP_I8W, scan_topk_plain_grouped,
-                                        scan_topk_plain_loop)
+    from cqs_tpu_torch.ops.topk import (GROUPED, GROUPED_I8, GROUPED_I8W, IMPLS, LOOP_CC,
+                                        LOOP_I8_CC, LOOP_I8W, LOOP_SPLIT, LOOP_SPLIT_I8,
+                                        scan_topk_plain_grouped, scan_topk_plain_loop)
 
     def plain_of(kernel):
         return scan_topk_plain_grouped if kernel.grouped else scan_topk_plain_loop
 
-    errs = {k.name: 0.0 for k in KERNELS}
+    errs = {k.name: 0.0 for k in IMPLS}
     timings = []
 
     def check(kernel, index, q, mask, tile, m, label):
@@ -267,40 +357,51 @@ def phase_kernels(torch, dev, rng, seed, report):
         errs[kernel.name] = max(errs[kernel.name],
                                 cmp(kernel, plain_of(kernel), index, q, mask, tile, m, label))
 
-    def timed(kernel, index, q, mask, tile, m, iters):
-        """Both twins' times, in turns (plain, kernel, kernel, plain); for
-        GROUPED_I8 also torch._int_mm on the same score product (not the
-        same function: no top-m) where it takes the shape (B a multiple of
-        8)."""
+    def timed(kernel, index, q, mask, tile, m, iters, rival=None):
+        """The kernel's and its plain twin's times, and a rival kernel's on
+        the same inputs, in turns (plain, kernel, rival, rival, kernel,
+        plain); the library call beside it: for GROUPED_I8 torch._int_mm on
+        the same score product where it takes the shape (B a multiple of
+        8), for the bf16 split loop kernel torch.matmul (neither is the same
+        function: no top-m)."""
         n, d = index.shape
         b = q.shape[0]
-        check(kernel, index, q, mask, tile, m,
-              f"{kernel.name} n={n} d={d} tile={tile} b={b} m={m}")
+        label = f"n={n} d={d} tile={tile} b={b} m={m}"
+        for k in (kernel, rival) if rival else (kernel,):
+            check(k, index, q, mask, tile, m, f"{k.name} {label}")
         plain = plain_of(kernel)
         pm1 = cuda_ms(lambda: plain(index, q, mask, tile, m), iters)
         km1 = cuda_ms(lambda: kernel(index, q, mask, tile, m), iters)
+        rm = rival and [cuda_ms(lambda: rival(index, q, mask, tile, m), iters) for _ in (0, 1)]
         km2 = cuda_ms(lambda: kernel(index, q, mask, tile, m), iters)
         pm2 = cuda_ms(lambda: plain(index, q, mask, tile, m), iters)
         lib_ms = None
         if kernel is GROUPED_I8 and b % 8 == 0:
             qt = q.t().contiguous()           # [D, B]: index @ qt is the scores' transpose
             lib_ms = cuda_ms(lambda: torch._int_mm(index, qt), iters)
+        elif kernel is LOOP_SPLIT:
+            lib_ms = cuda_ms(lambda: torch.matmul(q, index.t()), iters)
         timings.append({"kernel": kernel.name, "n": n, "d": d, "tile": tile, "b": b, "m": m,
                         "ms": (km1 + km2) / 2, "plain_ms": (pm1 + pm2) / 2,
-                        "library_ms": lib_ms})
+                        "library_ms": lib_ms, "rival": rival and rival.name,
+                        "rival_ms": rival and sum(rm) / 2})
 
     cases = check_grouped_i8(torch, dev, seed)
     print(f"kernels: {GROUPED_I8.name} exact at {cases} (width, B, tile, m) cases: widths "
           f"16/48/1024/4096, B 1/3/65/128, tiles 128-16384, m 4/16/128")
+    cases = check_loop_split(torch, dev, seed)
+    print(f"kernels: {LOOP_SPLIT.name} (bf16, integer values) and {LOOP_SPLIT_I8.name} exact "
+          f"at {cases} cases: widths 16/48/256/1024/4096, B 1/3/64/65/128, tiles 128-16384 "
+          f"(1-16 slices), m 4/16/64/128, a fully masked tile")
     for name, index, q, mask, tile, m in adversarial_cases(torch, dev, rng):
-        for kernel in (LOOP, GROUPED):
+        for kernel in (LOOP_SPLIT, LOOP_CC, GROUPED):
             check(kernel, index, q, mask, tile, m, f"{kernel.name}/{name}")
     for name, index, q8, qbf, mask, tile, m in int8_cases(torch, dev, rng):
-        for kernel in (LOOP_I8, GROUPED_I8):
+        for kernel in (LOOP_SPLIT_I8, LOOP_I8_CC, GROUPED_I8):
             check(kernel, index, q8, mask, tile, m, f"{kernel.name}/{name}")
         for kernel in (LOOP_I8W, GROUPED_I8W):
             check(kernel, index, qbf, mask, tile, m, f"{kernel.name}/{name}")
-    print("kernels: adversarial cases ok for all six kernels (mask, spread spikes, "
+    print("kernels: adversarial cases ok for all eight kernels (mask, spread spikes, "
           "same-group collision, heavy mask, ties); int8 x int8 exact")
     # the tensor-core grouped kernels where an MMA design breaks: K padded
     # inside the last chunk, zero queries inside an n-tile and a second query
@@ -325,55 +426,83 @@ def phase_kernels(torch, dev, rng, seed, report):
                 q = torch.randn(b, d, device=dev, generator=gen).to(torch.bfloat16)
                 for tile, m in ((128, 4), (128, 16), (16384, 16)):
                     check(kernel, index, q, mask, tile, m, f"{label} tile={tile} m={m}")
+                    if kernel is GROUPED:     # the split loop kernel on random bf16
+                        check(LOOP_SPLIT, index, q, mask, tile, m, f"{label} split m={m}")
                 q_int = torch.randint(-3, 4, (b, d), device=dev, generator=gen).to(torch.bfloat16)
                 for tile, m in ((128, 128), (16384, 16)):
                     compare_exact(kernel, plain_of(kernel), int_rows, q_int, mask, tile, m,
                                   f"{label} tile={tile} m={m} integer")
     print("kernels: tensor-core grouped kernels ok at widths 24/48/4096, B 3/65/128, "
-          "tiles 128 and 16384; exact on integer inputs through m 128")
-    for n in (4096, SCALE_ROWS):
+          "tiles 128 and 16384; exact on integer inputs through m 128; split loop kernel "
+          "within a near-tie on random bf16")
+    # bf16 main-path shapes: the repository corpus (4,096 rows, per-tile k
+    # 64) at B 1/8/64/128, a daemon-sized corpus (65,536 rows, k 32) at B 64,
+    # 1,048,576 rows at B=1 k 4 (the solo program) and B=128 k 64 (loop at
+    # B>1); the split kernel in turns with the template at each shape; the
+    # grouped kernel at B 1/8/128, k 4/16
+    # (the rows' seeds come from rng at the shapes earlier runs timed, so the
+    # scale phase's data, drawn from rng after this phase, stays the same)
+    for n in (4096, 65536, SCALE_ROWS):
         for d in (256, 1024):
-            gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+            gen = torch.Generator(device=dev).manual_seed(
+                seed + n + d if n == 65536 else int(rng.integers(1 << 30)))
             index = torch.randn(n, d, device=dev, generator=gen).to(torch.bfloat16)
             mask = (torch.rand(n, device=dev, generator=gen) > 0.02).to(torch.int32)
-            for b in (1, 8, 128):
+            shapes = {4096: ((1, 64), (8, 64), (64, 64), (128, 64)), 65536: ((64, 32),),
+                      SCALE_ROWS: ((1, 4), (128, 64)) if d == 1024 else ((1, 4),)}[n]
+            for b, m in shapes:
                 q = torch.randn(b, d, device=dev, generator=gen).to(torch.bfloat16)
-                for kernel in (LOOP, GROUPED):
-                    for m in ((4, 16, 64) if kernel is LOOP else (4, 16)):
-                        timed(kernel, index, q, mask, 2048, m, 20 if n == SCALE_ROWS else 100)
+                timed(LOOP_SPLIT, index, q, mask, 2048, m, 10 if n == SCALE_ROWS else 100,
+                      rival=LOOP_CC)
+            if n != 65536:
+                for b in (1, 8, 128):
+                    q = torch.randn(b, d, device=dev, generator=gen).to(torch.bfloat16)
+                    for m in (4, 16):
+                        timed(GROUPED, index, q, mask, 2048, m, 20 if n == SCALE_ROWS else 100)
             del index, mask
             torch.cuda.empty_cache()
-    # the int8 programs' shapes: q8 dense (x 256) and sketch (x 1024) scans at
-    # tile 2048, sk8's sketch scan at tile 4096, the screened int8 scan at
-    # tile 16384 x 256, B=1; widening kernels at m 4
-    for d in (256, 1024):
-        gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
-        index = torch.randint(-127, 128, (SCALE_ROWS, d), device=dev, generator=gen,
-                              dtype=torch.int8)
-        mask = (torch.rand(SCALE_ROWS, device=dev, generator=gen) > 0.02).to(torch.int32)
-        for b in (1, 8, 128):
-            q8 = torch.randint(-127, 128, (b, d), device=dev, generator=gen, dtype=torch.int8)
-            qbf = torch.randn(b, d, device=dev, generator=gen).to(torch.bfloat16)
-            for tile in (2048, 4096):
-                for m in (4, 16):
-                    for kernel in (LOOP_I8, GROUPED_I8):
-                        timed(kernel, index, q8, mask, tile, m, 10)
-                for kernel in (LOOP_I8W, GROUPED_I8W):
-                    timed(kernel, index, qbf, mask, tile, 4, 10)
-            if d == 256 and b == 1:
-                for kernel in (LOOP_I8, GROUPED_I8):
-                    timed(kernel, index, q8, mask, 16384, 16, 10)
-                for kernel in (LOOP_I8W, GROUPED_I8W):
-                    timed(kernel, index, qbf, mask, 16384, 16, 10)
+    # int8 shapes: q8/sk8 at the repository corpus (k 64) and 65,536 rows
+    # (k 32); at 1,048,576 rows the q8 dense (x 256) and sketch (x 1024) scans
+    # at tile 2048, sk8's sketch scan at tile 4096, B 1/8/128, k 4/16, and
+    # the screened int8 scan at tile 16384 x 256, B=1, k 16; widening kernels
+    # at k 4
+    for n, d in ((4096, 256), (4096, 1024), (65536, 256), (65536, 1024), (SCALE_ROWS, 256),
+                 (SCALE_ROWS, 1024)):
+        gen = torch.Generator(device=dev).manual_seed(
+            int(rng.integers(1 << 30)) if n == SCALE_ROWS else seed + n + d)
+        index = torch.randint(-127, 128, (n, d), device=dev, generator=gen, dtype=torch.int8)
+        mask = (torch.rand(n, device=dev, generator=gen) > 0.02).to(torch.int32)
+        if n < SCALE_ROWS:
+            for b in (1, 8, 64) if n == 4096 else (1, 64):
+                q8 = torch.randint(-127, 128, (b, d), device=dev, generator=gen, dtype=torch.int8)
+                timed(LOOP_SPLIT_I8, index, q8, mask, 2048, 64 if n == 4096 else 32, 100,
+                      rival=LOOP_I8_CC)
+        else:
+            for b in (1, 8, 128):
+                q8 = torch.randint(-127, 128, (b, d), device=dev, generator=gen, dtype=torch.int8)
+                qbf = torch.randn(b, d, device=dev, generator=gen).to(torch.bfloat16)
+                for tile in (2048, 4096):
+                    for m in (4, 16):
+                        timed(LOOP_SPLIT_I8, index, q8, mask, tile, m, 10, rival=LOOP_I8_CC)
+                        timed(GROUPED_I8, index, q8, mask, tile, m, 10)
+                    for kernel in (LOOP_I8W, GROUPED_I8W):
+                        timed(kernel, index, qbf, mask, tile, 4, 10)
+                if d == 256 and b == 1:
+                    timed(LOOP_SPLIT_I8, index, q8, mask, 16384, 16, 10, rival=LOOP_I8_CC)
+                    timed(GROUPED_I8, index, q8, mask, 16384, 16, 10)
+                    for kernel in (LOOP_I8W, GROUPED_I8W):
+                        timed(kernel, index, qbf, mask, 16384, 16, 10)
         del index, mask
         torch.cuda.empty_cache()
-    print("kernels: main-path shapes ok; times (ms, CUDA events, kernel vs plain; "
-          "library: torch._int_mm, the score product only, not the same function):")
+    print("kernels: main-path shapes ok; times (ms, CUDA events, kernel vs plain, and vs "
+          "the template in turns; library: torch._int_mm or torch.matmul, the score product "
+          "only, not the same function):")
     for t in timings:
         lib = f"  library {t['library_ms']:9.4f}" if t["library_ms"] is not None else ""
+        riv = f"  {t['rival']} {t['rival_ms']:9.4f}" if t["rival"] else ""
         print(f"  {t['kernel']:26s} n={t['n']:8d} d={t['d']:5d} tile={t['tile']:5d} "
               f"b={t['b']:4d} m={t['m']:3d}  kernel {t['ms']:9.4f}  plain {t['plain_ms']:9.4f}"
-              f"{lib}")
+              f"{lib}{riv}")
     for name, err in errs.items():
         print(f"kernels: {name} max |err| vs plain {err:.3g}")
     report["errs"] = errs
@@ -428,15 +557,16 @@ E2E_RUNS = (
 def e2e_run(dev, proj, label, batched, main):
     """Solo searches through the CLI and the engine, then a paused batcher
     burst, under the knobs already set. Fails when a search has no hits,
-    does not launch the kernel its program scans with, or (``batched``) when
-    a batched result differs from solo."""
+    when a solo search or the burst does not launch the split loop kernel
+    its program scans with, or (``batched``) when a batched result differs
+    from solo."""
     from cqs_tpu_torch.cli.context import CommandContext
     from cqs_tpu_torch.daemon.batcher import QueryBatcher
-    from cqs_tpu_torch.ops.topk import GROUPED_I8, LOOP, LOOP_I8
+    from cqs_tpu_torch.ops.topk import GROUPED_I8, LOOP_I8, LOOP_SPLIT, LOOP_SPLIT_I8
 
-    # the kernel every solo search of this run must launch: bf16 loop, or
-    # the int8 loop (small corpora take loop: per-tile k 64 > 16)
-    kernel = LOOP if label == "bf16" else LOOP_I8
+    # the kernel every solo search of this run must launch: the split loop
+    # kernel, bf16 or int8 (small corpora take loop: per-tile k 64 > 16)
+    kernel = LOOP_SPLIT if label == "bf16" else LOOP_SPLIT_I8
     cli_ms = []
     for q in QUERIES if label == "bf16" else QUERIES[:3]:
         before = kernel.launches
@@ -465,6 +595,7 @@ def e2e_run(dev, proj, label, batched, main):
     ctx2 = CommandContext.create(str(proj), device=dev)
     batcher = QueryBatcher(ctx2.engine)
     i8_before = LOOP_I8.launches + GROUPED_I8.launches
+    split_before = (LOOP_SPLIT if label in ("bf16", "screened") else LOOP_SPLIT_I8).launches
     try:
         batcher.pause()
         futs = [batcher.submit(q) for q in QUERIES[:8]]
@@ -478,6 +609,9 @@ def e2e_run(dev, proj, label, batched, main):
     if (dev.type == "cuda" and label in ("q8", "sk8")
             and LOOP_I8.launches + GROUPED_I8.launches <= i8_before):
         fail(f"{label}: the batched program launched no int8 kernel")
+    split = LOOP_SPLIT if label in ("bf16", "screened") else LOOP_SPLIT_I8
+    if dev.type == "cuda" and split.launches <= split_before:
+        fail(f"{label}: the batched program did not launch {split.name}")
     if batched:
         for q, res in zip(QUERIES[:8], results):
             got = [(h.row.id, h.score) for h in res.hits]
@@ -597,15 +731,86 @@ def scale_workload(torch, dev, rng, n: int = SCALE_ROWS, b: int = 128):
         gen_s=gen_s, dense_s=t1 - t0, sparse_s=t2 - t1)
 
 
-def phase_scale(torch, dev, rng, report, n: int = SCALE_ROWS):
+def exact_rows(torch, w, bq: int):
+    """Rows of the exact bf16 program (materialised [B, N] scores, stable
+    top-pool) for the first ``bq`` queries of workload ``w``."""
+    from cqs_tpu_torch.search import program
+
+    qm = w.q_dense[:bq].to(torch.bfloat16)
+    qsk = program._query_sketch(w.q_ids_t[:bq], w.q_w_t[:bq], w.s).to(torch.bfloat16)
+    r, dc = program._exact_candidates(w.dense.matrix, w.sparse.sketch, w.dense.mask, qm, qsk,
+                                      w.pool)
+    return program._exact_rescore_fuse(w.packed, None, w.dense.mask, w.q_ids_t[:bq],
+                                       w.q_w_t[:bq], w.alphas[:bq], r.to(torch.int32), dc,
+                                       w.pool, w.v)[1]
+
+
+def screened_program(torch, w, mode: str = "int8"):
+    """Build workload ``w``'s dense screen (``screen_mode`` int8 or proj,
+    default knobs otherwise) and return (the screened program over queries
+    i:j, build seconds). The screen stays on ``w.dense`` until it is built
+    again."""
     import numpy as np
 
+    from cqs_tpu_torch.search import program
+
+    with knobs({"CQST_SCREEN_ENABLE": "1", "CQST_SCREEN_MODE": mode,
+                "CQST_SCREEN_MIN_ROWS": str(min(w.n, 131072))}):   # the default at 1M
+        t0 = time.perf_counter()
+        w.dense._build_screen()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    if w.dense.screen is None:
+        fail(f"no {mode} screen at {w.n} rows")
+    q_scr = torch.from_numpy(np.stack([w.dense.project_query(x) for x in w.q])).to(
+        w.q_dense.device)
+    mini = w.sparse.sketch_mini(128)
+
+    def screened(i, j):
+        return program.hybrid_query_screened(
+            w.dense.matrix, w.dense.screen, w.packed, None, mini, w.dense.mask, w.q_dense[i:j],
+            q_scr[i:j], w.q_ids_t[i:j], w.q_w_t[i:j], w.alphas[i:j], w.pool, 4096, w.v,
+            w.s // 128, 4)
+    return screened, build_s
+
+
+def phase_daemon(torch, dev, seed: int, report, n: int = 65536, b: int = 64):
+    """A daemon-sized corpus: the bf16 batch program at B=64 on ``n`` rows,
+    below the 131,072 rows at which batches turn grouped, so both scans run
+    the split loop kernel (per-tile k 32). Wall (CUDA events) beside
+    device-busy (``torch.profiler``), and top-10 agreement with the exact
+    program. Own generator."""
+    import numpy as np
+
+    from cqs_tpu_torch.ops.topk import LOOP_SPLIT
+
+    w = scale_workload(torch, dev, np.random.default_rng(seed + 1), n, b)
+    if w.ext != "loop":
+        fail(f"B={b} at {n} rows did not select the loop kernel ({w.ext})")
+    before = LOOP_SPLIT.launches
+    fn = w.programs["bf16"]
+    wall = cuda_ms(lambda: fn(0, b), 20)
+    busy, by_kernel = device_busy(torch, lambda: fn(0, b), 5)
+    if dev.type == "cuda" and LOOP_SPLIT.launches <= before:
+        fail(f"the B={b} batch at {n} rows did not launch {LOOP_SPLIT.name}")
+    scans = {k: x for k, x in by_kernel.items() if "loop_split" in k or "merge_slices" in k}
+    agree = top10_agreement(fn(0, b)[1], exact_rows(torch, w, b))
+    print(f"daemon: {n} rows, bf16 batch B={b}: wall {wall:.4f} ms (CUDA events), device-busy "
+          f"{busy:.4f} ms, of it the split scans {sum(scans.values()):.4f} ms; top-10 "
+          f"agreement {agree:.4f}")
+    if agree < 0.9:
+        fail("daemon-sized bf16 top-10 agreement with the exact scan below 0.9")
+    report["daemon"] = {"n": n, "b": b, "wall_ms": wall, "device_busy_ms": busy,
+                        "scan_busy_ms": scans, "agree_top10": agree}
+
+
+def phase_scale(torch, dev, rng, report, n: int = SCALE_ROWS):
     from cqs_tpu_torch.ops.topk import scan_topk, topk_plain
     from cqs_tpu_torch.search import program
 
     w = scale_workload(torch, dev, rng, n)
-    dense, sparse, packed, pool, v, s, b = w.dense, w.sparse, w.packed, w.pool, w.v, w.s, w.b
-    q, q_dense, q_ids_t, q_w_t, alphas = w.q, w.q_dense, w.q_ids_t, w.q_w_t, w.alphas
+    dense, sparse, packed, pool, s, b = w.dense, w.sparse, w.packed, w.pool, w.s, w.b
+    q_dense = w.q_dense
     torch.cuda.synchronize()
     gb = sum(x.numel() * x.element_size() for x in
              (dense.matrix, sparse.doc_ids, sparse.doc_w, sparse.sketch, packed)) / 1e9
@@ -623,14 +828,7 @@ def phase_scale(torch, dev, rng, report, n: int = SCALE_ROWS):
     sk8_build_ms = cuda_ms(lambda: program.quantize_sketch(sparse.sketch), 3)
     dense_i8 = w.dense_i8
 
-    def exact(bq):
-        qm = q_dense[:bq].to(torch.bfloat16)
-        qsk = program._query_sketch(q_ids_t[:bq], q_w_t[:bq], s).to(torch.bfloat16)
-        r, dc = program._exact_candidates(dense.matrix, sparse.sketch, dense.mask, qm, qsk, pool)
-        return program._exact_rescore_fuse(packed, None, dense.mask, q_ids_t[:bq], q_w_t[:bq],
-                                           alphas[:bq], r.to(torch.int32), dc, pool, v)
-
-    ref_b, ref_1 = exact(b)[1], exact(nq)[1]
+    ref_b, ref_1 = exact_rows(torch, w, b), exact_rows(torch, w, nq)
 
     def solo_rows(fn):
         return torch.cat([fn(i, i + 1)[1] for i in range(nq)])
@@ -643,23 +841,8 @@ def phase_scale(torch, dev, rng, report, n: int = SCALE_ROWS):
                      "agree_b128": top10_agreement(fn(0, b)[1], ref_b)}
 
     # the screened B=1 program, int8 and proj screens (default screen knobs)
-    mini = sparse.sketch_mini(128)
     for mode in ("int8", "proj"):
-        with knobs({"CQST_SCREEN_ENABLE": "1", "CQST_SCREEN_MODE": mode,
-                    "CQST_SCREEN_MIN_ROWS": str(min(n, 131072))}):   # the default at 1M
-            t0 = time.perf_counter()
-            dense._build_screen()
-            torch.cuda.synchronize()
-            build_s = time.perf_counter() - t0
-        if dense.screen is None:
-            fail(f"no {mode} screen at {n} rows")
-        q_scr = torch.from_numpy(np.stack([dense.project_query(x) for x in q[:nq]])).to(dev)
-
-        def screened(i, j):
-            return program.hybrid_query_screened(
-                dense.matrix, dense.screen, packed, None, mini, dense.mask, q_dense[i:j],
-                q_scr[i:j], q_ids_t[i:j], q_w_t[i:j], alphas[i:j], pool, 4096, v, s // 128, 4)
-
+        screened, build_s = screened_program(torch, w, mode)
         res[f"screened_{mode}"] = {"b1_ms": cuda_ms(lambda: screened(0, 1), 20),
                                    "agree_b1": top10_agreement(solo_rows(screened), ref_1),
                                    "screen_build_s": build_s}
@@ -708,7 +891,7 @@ def main() -> int:
     import numpy as np
 
     from cqs_tpu_torch.ops import _kernels
-    from cqs_tpu_torch.ops.topk import KERNELS
+    from cqs_tpu_torch.ops.topk import IMPLS, KERNELS, LOOP_SPLIT, LOOP_SPLIT_I8
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -724,23 +907,24 @@ def main() -> int:
     report: dict = {}
     if "kernels" in phases:
         phase_kernels(torch, dev, rng, args.seed, report)
-    kernel_phase = {k.name: k.launches for k in KERNELS}
+    kernel_phase = {k.name: k.launches for k in IMPLS}
     if "kernels" in phases:
         print(f"launches in the kernel phase: {kernel_phase}")
         for k in KERNELS:
             if k.kind == "i8w" and k.launches == 0:
                 fail(f"widening kernel {k.name} was not launched in the kernel phase")
-    for k in KERNELS:
+    for k in IMPLS:
         k.launches = 0                        # the main path's run starts here
     if "e2e" in phases:
         phase_e2e(torch, dev, report)
     if "scale" in phases:
         phase_scale(torch, dev, rng, report)
+        phase_daemon(torch, dev, args.seed, report)     # last: it runs the profiler
     torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in KERNELS}
+    launches = {k.name: k.launches for k in IMPLS}
     print(f"launches on the main path: {launches}")
     if {"e2e", "scale"} <= phases:
-        for k in KERNELS:
+        for k in (*KERNELS, LOOP_SPLIT, LOOP_SPLIT_I8):
             if k.launches == 0:
                 fail(f"kernel {k.name} was not launched on the main path")
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")]
@@ -749,21 +933,25 @@ def main() -> int:
     reference = [m for m in sys.modules if m.split(".")[0] == "cqs_tpu"]
     if reference:
         fail(f"modules of the JAX package were imported: {reference[:5]}")
-    # the case each kernel's times on the kernels line come from: the 1M x
-    # 1024 sketch scan, loop at B=1 and grouped at B=128 (tile 2048, m 4)
+    # each kernel's times on the kernels line come from its KERNEL_CASES
+    # shape, timed as the kernel or as the rival of the split kernel there
     kernels = []
-    for k in KERNELS:
+    for k in IMPLS:
+        case = KERNEL_CASES[k.name]
         t = next((x for x in report.get("timings", [])
-                  if (x["kernel"], x["n"], x["d"], x["tile"], x["b"], x["m"])
-                  == (k.name, SCALE_ROWS, 1024, 2048, 128 if k.grouped else 1, 4)), None)
-        bound = t and bound_ms(k.kind, t["n"], t["d"], t["b"], t["tile"], t["m"])
+                  if k.name in (x["kernel"], x["rival"])
+                  and (x["n"], x["d"], x["tile"], x["b"], x["m"]) == case), None)
+        own = t is not None and t["kernel"] == k.name
+        bound = bound_ms(k.kind, *case[:2], case[3], case[2], case[4])
         kernels.append({"name": k.name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces, "launches": k.launches,
                         "kernel_phase_launches": kernel_phase[k.name],
                         "max_abs_err": report.get("errs", {}).get(k.name),
-                        "ms": t and t["ms"], "plain_ms": t and t["plain_ms"],
-                        "bound_ms": bound and bound[0], "bound_by": bound and bound[1],
-                        "library_ms": t and t["library_ms"],
+                        "shape": dict(zip(("n", "d", "tile", "b", "m"), case)),
+                        "ms": t and (t["ms"] if own else t["rival_ms"]),
+                        "plain_ms": t and t["plain_ms"],
+                        "bound_ms": bound[0], "bound_by": bound[1],
+                        "library_ms": t and own and t["library_ms"] or None,
                         "library_call": LIBRARY_CALLS.get(k.name)})
     out_dir = REPO / "chiprun_out"
     if out_dir.is_dir():                     # full record, written when the output dir exists

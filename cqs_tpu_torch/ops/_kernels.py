@@ -23,8 +23,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("scan_topk.cu", "scan_topk_mma.cu")
-HEADERS = ("scan_common.cuh",)
+SOURCES = ("scan_topk.cu", "scan_topk_mma.cu", "scan_loop_mma.cu")
+HEADERS = ("scan_common.cuh", "scan_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -108,6 +108,10 @@ def load() -> ctypes.CDLL:
                 fn = getattr(lib, f"cqs_scan_topk_{body}_{kind}")
                 fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
                 fn.restype = ci
+        for kind in ("bf16", "i8"):      # the split loop kernel: + scratch, slices
+            fn = getattr(lib, f"cqs_scan_topk_loop_split_{kind}")
+            fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
+            fn.restype = ci
         lib.cqs_scan_smem_bytes.argtypes = [ci, ci, ci, ci]
         lib.cqs_scan_smem_bytes.restype = ctypes.c_size_t
         _lib = lib

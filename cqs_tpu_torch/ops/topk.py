@@ -12,9 +12,12 @@ Port of ``cqs_tpu/ops/topk.py``. Two layers:
   x bf16 (:data:`LOOP` / :data:`GROUPED`), int8 x int8 (:data:`LOOP_I8` /
   :data:`GROUPED_I8`) and int8 rows widened against a bf16 query
   (:data:`LOOP_I8W` / :data:`GROUPED_I8W`). The three grouped kernels are
-  the tensor-core kernel of ``csrc/scan_topk_mma.cu``; the three loop
-  kernels the CUDA-core template of ``csrc/scan_topk.cu``. On a CPU tensor
-  it runs the plain version.
+  the tensor-core kernel of ``csrc/scan_topk_mma.cu``. The bf16 and int8 x
+  int8 loop kernels route by shape (:func:`loop_impl`) to the split
+  tensor-core kernel of ``csrc/scan_loop_mma.cu`` (tiles cut into row
+  slices across CTAs, an exact per-slice top-m, a merge kernel) or to the
+  CUDA-core template of ``csrc/scan_topk.cu``, which also keeps the
+  widening loop kernel. On a CPU tensor it runs the plain version.
 
 Stage 2 is the exact stable top-k, which is what the reference computes off
 the TPU and in interpret mode (the TPU-only ``approx_max_k`` is not ported).
@@ -37,6 +40,20 @@ _SMEM_LIMIT = 227 * 1024 - 1024
 MMA_QUERY_BLOCKS = (8, 16, 32, 64)
 #: Tallest tile it takes: a group's winning sub-tile is kept in a byte.
 MMA_MAX_TILE = 256 * GROUP_LANES
+#: Rows of the tensor-core kernels' sub-tile; a split slice is a multiple.
+SUB_TILE = 128
+#: Largest per-tile k of the split loop kernel (its per-query lists hold
+#: m rounded up to a power of two, at most 128 keys); a larger m, or a tile
+#: that is not a multiple of 128 rows, takes the CUDA-core template.
+SPLIT_MAX_M = 128
+#: Most row slices a tile is cut into, and the CTA count the split aims for:
+#: two a streaming multiprocessor of an H100 (132).
+SPLIT_MAX_SLICES = 16
+SPLIT_TARGET_CTAS = 2 * 132
+#: Widest query block of the split loop kernel: at 64 its ring and lists
+#: leave room for one CTA an SM, and 32 measured faster at B 64 and 128 on
+#: an H100 (PERF.md).
+SPLIT_MAX_QUERY_BLOCK = 32
 
 
 #: rows of the int8 twin's float64 product taken at a time (bounds the
@@ -211,6 +228,38 @@ def mma_query_block(b: int) -> int:
     return next((qb for qb in MMA_QUERY_BLOCKS if qb >= b), MMA_QUERY_BLOCKS[-1])
 
 
+def split_query_block(b: int) -> int:
+    """Query block of the split loop kernel for a batch of ``b``: the
+    tensor-core kernels' block, at most :data:`SPLIT_MAX_QUERY_BLOCK`."""
+    return min(mma_query_block(b), SPLIT_MAX_QUERY_BLOCK)
+
+
+def split_slices(n: int, tile_n: int, b: int) -> int:
+    """Row slices a tile is cut into by the split loop kernel: doubled from 1
+    while the slices stay multiples of 128 rows, at most
+    :data:`SPLIT_MAX_SLICES`, and the grid (tiles x slices x query blocks)
+    holds fewer than :data:`SPLIT_TARGET_CTAS` CTAs. 16 at the repository
+    corpus (4,096 rows, tile 2048, any B <= 64), 1 at 1,048,576 rows."""
+    tiles = n // tile_n
+    nqb = -(-b // split_query_block(b))
+    p = 1
+    while (p < SPLIT_MAX_SLICES and tile_n % (2 * p * SUB_TILE) == 0
+           and tiles * p * nqb < SPLIT_TARGET_CTAS):
+        p *= 2
+    return p
+
+
+def loop_impl(kind: str, tile_n: int, m: int) -> str:
+    """Which kernel a "loop" launch takes, by shape: "split" (the tensor-core
+    kernel of ``csrc/scan_loop_mma.cu``) for bf16 and int8 x int8 rows at
+    m <= :data:`SPLIT_MAX_M` on tiles of whole 128-row sub-tiles; "template"
+    (the CUDA-core kernel of ``csrc/scan_topk.cu``) for int8 rows widened
+    against a bf16 query, and for any other m or tile."""
+    if kind == "i8w" or m > SPLIT_MAX_M or tile_n % SUB_TILE:
+        return "template"
+    return "split"
+
+
 class ScanKernel:
     """One hand-written CUDA scan kernel on CUDA cores (``csrc/scan_topk.cu``):
     one extraction over one row kind. ``launches`` counts the times this
@@ -280,19 +329,105 @@ class MmaScanKernel(ScanKernel):
         return mma_query_block(b)
 
 
-LOOP = ScanKernel("scan_topk_loop", "bf16", grouped=False,
-                  replaces="cqs_tpu/ops/topk.py:58")
+class SplitScanKernel(ScanKernel):
+    """The exact per-tile top-m on tensor cores (``csrc/scan_loop_mma.cu``):
+    bf16 rows, or int8 rows against an int8 query (exact int32 sums), in
+    query blocks of :func:`split_query_block`, each tile cut into
+    :func:`split_slices` row slices across CTAs. With more than one slice the
+    wrapper allocates the scratch of the slices' lists ([tiles, B, slices,
+    m] int64 keys) and the entry point launches the merge kernel after the
+    scan; one launch of this wrapper counts as one."""
+
+    source = "cqs_tpu_torch/csrc/scan_loop_mma.cu"
+
+    def __init__(self, name: str, kind: str, replaces: str):
+        super().__init__(name, kind, grouped=False, replaces=replaces)
+        self.symbol = f"cqs_scan_topk_loop_split_{kind}"
+
+    def __call__(self, index: torch.Tensor, queries: torch.Tensor,
+                 mask: torch.Tensor, tile_n: int, m: int):
+        from cqs_tpu_torch.ops import _kernels
+
+        if not index.is_cuda:
+            raise ValueError(f"{self.name} launches on CUDA tensors only")
+        kind = check_kernel_args(index, queries, mask, tile_n, m, grouped=False)
+        if kind != self.kind:
+            raise TypeError(f"{self.name} takes {self.kind} rows, got {kind}")
+        if loop_impl(kind, tile_n, m) != "split":
+            raise ValueError(f"{self.name} takes m <= {SPLIT_MAX_M} on tiles of whole "
+                             f"{SUB_TILE}-row sub-tiles (tile {tile_n}, m {m})")
+        lib = _kernels.load()
+        n, d = index.shape
+        b = queries.shape[0]
+        slices = split_slices(n, tile_n, b)
+        dev = index.device
+        vals = torch.empty((n // tile_n, b, m), dtype=torch.float32, device=dev)
+        rows = torch.empty((n // tile_n, b, m), dtype=torch.int32, device=dev)
+        part = (torch.empty((n // tile_n, b, slices, m), dtype=torch.int64, device=dev)
+                if slices > 1 else None)
+        with torch.cuda.device(dev):              # launch in the tensors' context
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = getattr(lib, self.symbol)(
+                queries.data_ptr(), index.data_ptr(), mask.data_ptr(), vals.data_ptr(),
+                rows.data_ptr(), None if part is None else part.data_ptr(), b, n, d, tile_n, m,
+                split_query_block(b), slices, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {err}")
+        self.launches += 1
+        return vals, rows
+
+
+class LoopKernel:
+    """The "loop" extraction over bf16 or int8 x int8 rows: each launch goes,
+    by :func:`loop_impl`, to the split tensor-core kernel or to the CUDA-core
+    template. Each of the two counts its own launches; ``launches`` here is
+    their sum."""
+
+    grouped = False
+
+    def __init__(self, name: str, kind: str, replaces: str, split: SplitScanKernel,
+                 template: ScanKernel):
+        self.name, self.kind, self.replaces = name, kind, replaces
+        self.split, self.template = split, template
+        self.symbol, self.source = split.symbol, split.source
+
+    @property
+    def launches(self) -> int:
+        return self.split.launches + self.template.launches
+
+    def impl(self, tile_n: int, m: int) -> ScanKernel:
+        return self.split if loop_impl(self.kind, tile_n, m) == "split" else self.template
+
+    def __call__(self, index: torch.Tensor, queries: torch.Tensor,
+                 mask: torch.Tensor, tile_n: int, m: int):
+        if not index.is_cuda:
+            raise ValueError(f"{self.name} launches on CUDA tensors only")
+        return self.impl(tile_n, m)(index, queries, mask, tile_n, m)
+
+
+LOOP_SPLIT = SplitScanKernel("scan_topk_loop_split", "bf16", replaces="cqs_tpu/ops/topk.py:58")
+LOOP_CC = ScanKernel("scan_topk_loop_cc", "bf16", grouped=False,
+                     replaces="cqs_tpu/ops/topk.py:58")
+LOOP = LoopKernel("scan_topk_loop", "bf16", "cqs_tpu/ops/topk.py:58", LOOP_SPLIT, LOOP_CC)
 GROUPED = MmaScanKernel("scan_topk_grouped", "bf16", grouped=True,
                         replaces="cqs_tpu/ops/topk.py:183")
-LOOP_I8 = ScanKernel("scan_topk_loop_i8", "i8", grouped=False,
-                     replaces="cqs_tpu/ops/topk.py:69")
+LOOP_SPLIT_I8 = SplitScanKernel("scan_topk_loop_split_i8", "i8",
+                                replaces="cqs_tpu/ops/topk.py:69")
+LOOP_I8_CC = ScanKernel("scan_topk_loop_i8_cc", "i8", grouped=False,
+                        replaces="cqs_tpu/ops/topk.py:69")
+LOOP_I8 = LoopKernel("scan_topk_loop_i8", "i8", "cqs_tpu/ops/topk.py:69", LOOP_SPLIT_I8,
+                     LOOP_I8_CC)
 GROUPED_I8 = MmaScanKernel("scan_topk_grouped_i8", "i8", grouped=True,
                            replaces="cqs_tpu/ops/topk.py:206")
 LOOP_I8W = ScanKernel("scan_topk_loop_i8w", "i8w", grouped=False,
                       replaces="cqs_tpu/ops/topk.py:76")
 GROUPED_I8W = MmaScanKernel("scan_topk_grouped_i8w", "i8w", grouped=True,
                             replaces="cqs_tpu/ops/topk.py:210")
+#: one wrapper per branch of the two Pallas kernel bodies
 KERNELS = (LOOP, GROUPED, LOOP_I8, GROUPED_I8, LOOP_I8W, GROUPED_I8W)
+#: every hand-written kernel, each with its own launch count
+IMPLS = (LOOP_SPLIT, LOOP_CC, GROUPED, LOOP_SPLIT_I8, LOOP_I8_CC, GROUPED_I8, LOOP_I8W,
+         GROUPED_I8W)
 _BY_KIND = {(k.kind, k.grouped): k for k in KERNELS}
 
 
