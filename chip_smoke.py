@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``cqs_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--phases kernels,e2e,scale]
+    python3 chip_smoke.py [--seed 0] [--phases kernels,e2e,scale,serve]
 
 Phases, each fatal on error (non-zero exit, no result line):
 
@@ -13,7 +13,9 @@ Phases, each fatal on error (non-zero exit, no result line):
    plain PyTorch twin on the card, on the adversarial cases of the
    reference's op tests and at the programs' shapes, with both times. The
    split loop kernel at the main path's shapes (4,096 rows, tile 2048, m
-   64: B 1/8/64/128; 65,536 rows, m 32, B 64; 1,048,576 rows: B=1 m 4 and
+   64: every batch size the batcher pads to, ``BATCH_RUNGS`` = B
+   1/4/8/16/32/64/128, so each query block the daemon launches is held
+   against the twin; 65,536 rows, m 32, B 64; 1,048,576 rows: B=1 m 4 and
    B=128 m 64; int8 also the screened scan, tile 16384 x 256, B=1, m 16),
    timed in turns with the template at the same shape and, for bf16,
    beside ``torch.matmul`` on the score product (not the same function);
@@ -22,7 +24,7 @@ Phases, each fatal on error (non-zero exit, no result line):
    beside ``torch._int_mm`` on the same score product (not the same
    function). The tensor-core kernels also where an MMA design breaks:
    widths 16/24/48/256/1024/4096, not multiples of 16 or of the K-chunk; B
-   1, 3, 64, 65 and 128; tiles 128 (one row a group, one slice) to 16384;
+   3 and 65 and the batcher's rungs; tiles 128 (one row a group, one slice) to 16384;
    m up to 128, a fully masked tile. int8 x int8 (and integer-valued bf16)
    must equal the twin exactly, slot for slot; random bf16 within a score
    near-tie;
@@ -41,10 +43,29 @@ Phases, each fatal on error (non-zero exit, no result line):
    screens) at B=1, the int8 quantization of the index, and a direct
    ``scan_topk`` over the int8 rows with a bf16 query (the widening kernels'
    only entry point), each with top-10 agreement against the exact plain
-   scan.
+   scan. At both sizes every program (bf16, q8, sk8, screened) also runs
+   once with the hand-written kernels and once with their plain twins on
+   the same inputs, and the two pools are held against each other slot by
+   slot (``pool_check``: shared rows' fused scores within rtol 1e-5 / atol
+   1e-6; a row in one pool only must be a near-tie at a scan's or the
+   pool's boundary);
+6. serve: the warm daemon, in this process plus threads: ``DaemonServer``
+   over a micro-batching ``BatchContext`` on the repository corpus, asked
+   over its Unix socket by 1, 4 and 16 client threads (queries per second,
+   round-trip median and p95, mean batch size; every answer equal to the
+   solo search); the watch loop's ``reconcile_once`` after one file is
+   added, one edited and one deleted, which must answer through
+   ``refresh_incremental`` without a rebuild while clients keep asking,
+   leave every live row's tensors equal to what the daemon was given (the
+   saved artifacts' values for the rows it loaded at its start, the
+   store's for the appended rows) and upload only the new rows; one request each through the batch loop, the MCP bridge and
+   the web API; the idle unload and the query after it. An error answer
+   from the daemon fails the run.
 
 The kernels' launch counters are zeroed before phase 4 and read after
-phase 5; a branch wrapper that did not launch there fails the run, and so
+phase 5, zeroed again before phase 6 and read after it (the split bf16
+loop kernel must have launched from the socket path); a branch wrapper that
+did not launch in phases 4-5 fails the run, and so
 does a split loop kernel that did not, a search of phase 4 whose solo or
 batched program did not launch the split kernel, a widening kernel that
 did not launch in phase 3, and any module of JAX or of the JAX package
@@ -217,12 +238,14 @@ def check_loop_split(torch, dev, seed: int) -> int:
     """The split loop kernel's two kinds slot for slot equal to the loop
     twin where the design breaks: int8 x int8 (full range, -128 included)
     and bf16 on integer values (exact f32 sums in any order, many ties);
-    widths 16/48/256/1024/4096; B 1, 3, 64, 65, 128 (query blocks 8 and 64,
-    a second block); tiles 128, 2048 and 16384 (1 to 16 slices, so the
+    widths 16/48/256/1024/4096; B 3 and 65 and every batch size the batcher
+    pads to (1/4/8/16/32/64/128: each built query block, 8, 16 and 32, and a
+    second block); tiles 128, 2048 and 16384 (1 to 16 slices, so the
     merge kernel runs); m 4/16/64/128 (m 128 on 128-row tiles: m equal to a
     slice, and slots past a tile's valid rows); 2% of rows masked, and rows
     4096-6143, a fully masked tile at tiles up to 2048. Own generator.
     Returns the number of cases."""
+    from cqs_tpu_torch.daemon.batcher import BATCH_RUNGS
     from cqs_tpu_torch.ops.topk import LOOP_SPLIT, LOOP_SPLIT_I8, scan_topk_plain_loop
 
     gen = torch.Generator(device=dev).manual_seed(seed + 7919)
@@ -236,7 +259,7 @@ def check_loop_split(torch, dev, seed: int) -> int:
                 index = torch.randint(-8, 9, (n, d), device=dev, generator=gen).to(torch.bfloat16)
             mask = (torch.rand(n, device=dev, generator=gen) > 0.02).to(torch.int32)
             mask[4096:6144] = 0
-            for b in (1, 3, 64, 65, 128):
+            for b in sorted({3, 65, *BATCH_RUNGS}):
                 if kernel is LOOP_SPLIT_I8:
                     q = torch.randint(-128, 128, (b, d), device=dev, generator=gen,
                                       dtype=torch.int8)
@@ -342,6 +365,7 @@ def int8_cases(torch, dev, rng):
 
 
 def phase_kernels(torch, dev, rng, seed, report):
+    from cqs_tpu_torch.daemon.batcher import BATCH_RUNGS
     from cqs_tpu_torch.ops.topk import (GROUPED, GROUPED_I8, GROUPED_I8W, IMPLS, LOOP_CC,
                                         LOOP_I8_CC, LOOP_I8W, LOOP_SPLIT, LOOP_SPLIT_I8,
                                         scan_topk_plain_grouped, scan_topk_plain_loop)
@@ -391,7 +415,8 @@ def phase_kernels(torch, dev, rng, seed, report):
           f"16/48/1024/4096, B 1/3/65/128, tiles 128-16384, m 4/16/128")
     cases = check_loop_split(torch, dev, seed)
     print(f"kernels: {LOOP_SPLIT.name} (bf16, integer values) and {LOOP_SPLIT_I8.name} exact "
-          f"at {cases} cases: widths 16/48/256/1024/4096, B 1/3/64/65/128, tiles 128-16384 "
+          f"at {cases} cases: widths 16/48/256/1024/4096, B 3/65 and the batcher's rungs "
+          f"1/4/8/16/32/64/128, tiles 128-16384 "
           f"(1-16 slices), m 4/16/64/128, a fully masked tile")
     for name, index, q, mask, tile, m in adversarial_cases(torch, dev, rng):
         for kernel in (LOOP_SPLIT, LOOP_CC, GROUPED):
@@ -436,7 +461,8 @@ def phase_kernels(torch, dev, rng, seed, report):
           "tiles 128 and 16384; exact on integer inputs through m 128; split loop kernel "
           "within a near-tie on random bf16")
     # bf16 main-path shapes: the repository corpus (4,096 rows, per-tile k
-    # 64) at B 1/8/64/128, a daemon-sized corpus (65,536 rows, k 32) at B 64,
+    # 64) at every batch size the batcher pads to (the daemon's launches: 16
+    # clients give batches of 9-10, padded to 16), a daemon-sized corpus (65,536 rows, k 32) at B 64,
     # 1,048,576 rows at B=1 k 4 (the solo program) and B=128 k 64 (loop at
     # B>1); the split kernel in turns with the template at each shape; the
     # grouped kernel at B 1/8/128, k 4/16
@@ -448,7 +474,7 @@ def phase_kernels(torch, dev, rng, seed, report):
                 seed + n + d if n == 65536 else int(rng.integers(1 << 30)))
             index = torch.randn(n, d, device=dev, generator=gen).to(torch.bfloat16)
             mask = (torch.rand(n, device=dev, generator=gen) > 0.02).to(torch.int32)
-            shapes = {4096: ((1, 64), (8, 64), (64, 64), (128, 64)), 65536: ((64, 32),),
+            shapes = {4096: tuple((b, 64) for b in BATCH_RUNGS), 65536: ((64, 32),),
                       SCALE_ROWS: ((1, 4), (128, 64)) if d == 1024 else ((1, 4),)}[n]
             for b, m in shapes:
                 q = torch.randn(b, d, device=dev, generator=gen).to(torch.bfloat16)
@@ -461,8 +487,8 @@ def phase_kernels(torch, dev, rng, seed, report):
                         timed(GROUPED, index, q, mask, 2048, m, 20 if n == SCALE_ROWS else 100)
             del index, mask
             torch.cuda.empty_cache()
-    # int8 shapes: q8/sk8 at the repository corpus (k 64) and 65,536 rows
-    # (k 32); at 1,048,576 rows the q8 dense (x 256) and sketch (x 1024) scans
+    # int8 shapes: q8/sk8 at the repository corpus (k 64, the batcher's
+    # rungs) and 65,536 rows (k 32); at 1,048,576 rows the q8 dense (x 256) and sketch (x 1024) scans
     # at tile 2048, sk8's sketch scan at tile 4096, B 1/8/128, k 4/16, and
     # the screened int8 scan at tile 16384 x 256, B=1, k 16; widening kernels
     # at k 4
@@ -473,7 +499,7 @@ def phase_kernels(torch, dev, rng, seed, report):
         index = torch.randint(-127, 128, (n, d), device=dev, generator=gen, dtype=torch.int8)
         mask = (torch.rand(n, device=dev, generator=gen) > 0.02).to(torch.int32)
         if n < SCALE_ROWS:
-            for b in (1, 8, 64) if n == 4096 else (1, 64):
+            for b in BATCH_RUNGS if n == 4096 else (1, 64):
                 q8 = torch.randint(-127, 128, (b, d), device=dev, generator=gen, dtype=torch.int8)
                 timed(LOOP_SPLIT_I8, index, q8, mask, 2048, 64 if n == 4096 else 32, 100,
                       rival=LOOP_I8_CC)
@@ -774,6 +800,122 @@ def screened_program(torch, w, mode: str = "int8"):
     return screened, build_s
 
 
+# -- each program's whole pool against the plain twins' program -----------------
+
+@contextlib.contextmanager
+def recorded_scans(plain: bool):
+    """Within the block every scan of a program (stage 1 of ``scan_topk``)
+    is recorded as (index, queries, mask, tile, vals, rows), and with
+    ``plain`` it runs the plain twin on the card in the kernel's place. The
+    package itself never makes that choice: this swaps the function here."""
+    from cqs_tpu_torch.ops import topk
+
+    real, log = topk.scan_tiles, []
+
+    def scan_tiles(index, queries, mask, tile_n, m, grouped):
+        if plain:
+            twin = topk.scan_topk_plain_grouped if grouped else topk.scan_topk_plain_loop
+            vals, rows = twin(index, queries, mask, tile_n, m)
+        else:
+            vals, rows = real(index, queries, mask, tile_n, m, grouped)
+        log.append((index, queries, mask, tile_n, vals, rows))
+        return vals, rows
+
+    topk.scan_tiles = scan_tiles
+    try:
+        yield log
+    finally:
+        topk.scan_tiles = real
+
+
+def near(a: float, b: float) -> bool:
+    return abs(a - b) <= ATOL + RTOL * abs(b)
+
+
+def tied_with_a_candidate(log, qi: int, row: int) -> bool:
+    """Whether ``row``'s score in one of the recorded scans lies within the
+    tolerance of a candidate that scan selected in the row's tile: the row
+    missed (or won) its place by a near-tie."""
+    from cqs_tpu_torch.ops import topk
+
+    for index, queries, mask, tile_n, vals, _ in log:
+        if qi >= queries.shape[0] or row >= index.shape[0] or int(mask[row]) == 0:
+            continue
+        score = float(topk._scores(index[row:row + 1], queries[qi:qi + 1], None)[0, 0])
+        picked = vals[row // tile_n, qi]
+        if any(near(score, float(c)) for c in picked[picked > -1e30].tolist()):
+            return True
+    return False
+
+
+def pool_check(torch, label: str, run) -> dict:
+    """One program run with the hand-written kernels and once more with
+    their plain twins, on the same inputs: the two pools (rows and fused
+    scores, every slot) must agree. A row in both pools has fused scores
+    within rtol 1e-5 / atol 1e-6. A row in one pool only must owe that to a
+    near-tie: its scan score within the same tolerance of a candidate that
+    the other run's scan picked in its tile, or its fused score within it of
+    the other pool's last slot. Anything else fails the run. Returns the
+    counts."""
+    with recorded_scans(plain=False) as k_log:
+        k_fused, k_rows = (x.cpu().numpy() for x in run()[:2])
+    with recorded_scans(plain=True) as p_log:
+        p_fused, p_rows = (x.cpu().numpy() for x in run()[:2])
+    if not k_log or len(k_log) != len(p_log):
+        fail(f"pool[{label}]: {len(k_log)} kernel scans against {len(p_log)} twin scans")
+    if k_fused.shape != p_fused.shape:
+        fail(f"pool[{label}]: pool shapes {k_fused.shape} and {p_fused.shape}")
+    slots = same = strays = 0
+    worst = 0.0
+    for qi in range(k_fused.shape[0]):
+        kp = {int(r): float(f) for r, f in zip(k_rows[qi], k_fused[qi]) if f > -1e30}
+        pp = {int(r): float(f) for r, f in zip(p_rows[qi], p_fused[qi]) if f > -1e30}
+        if not pp:
+            fail(f"pool[{label}]: query {qi}: the twins' pool is empty")
+        slots += len(pp)
+        same += int(((k_rows[qi] == p_rows[qi]) & (p_fused[qi] > -1e30)).sum())
+        for row in kp.keys() & pp.keys():
+            worst = max(worst, abs(kp[row] - pp[row]))
+            if not near(kp[row], pp[row]):
+                fail(f"pool[{label}]: query {qi} row {row}: fused {kp[row]!r} with the "
+                     f"kernels, {pp[row]!r} with the twins")
+        for mine, other, other_log, who in ((kp, pp, p_log, "kernels"), (pp, kp, k_log, "twins")):
+            tail = min(other.values()) if other else 0.0
+            for row in mine.keys() - other.keys():
+                strays += 1
+                if not (near(mine[row], tail) or tied_with_a_candidate(other_log, qi, row)):
+                    fail(f"pool[{label}]: query {qi}: row {row} (fused {mine[row]!r}) is in "
+                         f"the pool of the {who} only, and no near-tie explains it")
+    return {"queries": int(k_fused.shape[0]), "slots": slots, "same_slot_rows": same,
+            "rows_in_one_pool_only": strays, "max_fused_diff": worst}
+
+
+def pool_checks(torch, w, report_key: str, report, b1_queries: int = 4) -> None:
+    """:func:`pool_check` for the bf16, q8, sk8 and screened (int8 screen)
+    programs of workload ``w``: ``b1_queries`` calls at B=1 (summed on one
+    line) and, where the program batches, one call at the workload's B."""
+    def b1(name, fn):
+        runs = [pool_check(torch, f"{name}, {w.n} rows, B=1, query {i}",
+                           lambda: fn(i, i + 1)) for i in range(b1_queries)]
+        out = {k: sum(r[k] for r in runs) for k in runs[0] if k != "max_fused_diff"}
+        out["max_fused_diff"] = max(r["max_fused_diff"] for r in runs)
+        return out
+
+    screened, _ = screened_program(torch, w, "int8")
+    out = {"screened_b1": b1("screened", screened)}
+    w.dense._build_screen()                      # knobs restored: no screen
+    for name, fn in w.programs.items():
+        out[f"{name}_b1"] = b1(name, fn)
+        out[f"{name}_b{w.b}"] = pool_check(torch, f"{name}, {w.n} rows, B={w.b}",
+                                           lambda: fn(0, w.b))
+    for label, r in sorted(out.items()):
+        print(f"pool[{w.n} rows, {label}]: kernels against plain twins, {r['queries']} "
+              f"queries, {r['slots']} slots: {r['same_slot_rows']} hold the same row, "
+              f"{r['rows_in_one_pool_only']} rows in one pool only (each a near-tie), max "
+              f"|fused diff| on shared rows {r['max_fused_diff']:.3g} (rtol {RTOL}, atol {ATOL})")
+    report[report_key] = out
+
+
 def phase_daemon(torch, dev, seed: int, report, n: int = 65536, b: int = 64):
     """A daemon-sized corpus: the bf16 batch program at B=64 on ``n`` rows,
     below the 131,072 rows at which batches turn grouped, so both scans run
@@ -802,6 +944,7 @@ def phase_daemon(torch, dev, seed: int, report, n: int = 65536, b: int = 64):
         fail("daemon-sized bf16 top-10 agreement with the exact scan below 0.9")
     report["daemon"] = {"n": n, "b": b, "wall_ms": wall, "device_busy_ms": busy,
                         "scan_busy_ms": scans, "agree_top10": agree}
+    pool_checks(torch, w, "daemon_pools", report)
 
 
 def phase_scale(torch, dev, rng, report, n: int = SCALE_ROWS):
@@ -873,12 +1016,469 @@ def phase_scale(torch, dev, rng, report, n: int = SCALE_ROWS):
             fail(f"{name} top-10 agreement with the exact scan below 0.8")
     report["scale"] = {"device_gb": gb, "sketch_build_s": w.sparse_s, "ptk": ptk,
                        "dense_i8_ms": q8_build_ms, "sketch_i8_ms": sk8_build_ms, **res}
+    pool_checks(torch, w, "scale_pools", report)
+
+
+# -- phase 6: the warm daemon over its socket -----------------------------------
+
+#: appended to a query so that no two requests of one round share a text:
+#: every request then runs its device program, none is a result-cache hit
+SERVE_WORDS = ["store", "index", "query", "chunk", "token", "cache", "batch", "score",
+               "parse", "embed", "daemon", "socket", "sketch", "kernel", "filter", "router"]
+ADDED_FILE = '''"""Added while the daemon runs."""
+
+
+def quuxify_flange_adapter(flange, torque):
+    """Quuxify the flange adapter until the torque reading settles."""
+    return flange * torque
+'''
+EDIT_TAIL = '''
+
+
+def wobble_sprocket_tally(sprockets):
+    """Tally the wobble of every sprocket on the shaft."""
+    return sum(sprockets)
+'''
+DOOMED_FILE = '''"""Indexed at the start, deleted while the daemon runs."""
+
+
+def zygomorphic_petal_counter(petals):
+    """Count the petals of a zygomorphic flower."""
+    return len(petals)
+'''
+
+
+def socket_dir(index_dir: Path) -> tuple[Path, int | None]:
+    """The directory to hand the daemon's server and its clients for
+    ``index_dir``: itself where a socket under it fits an AF_UNIX address
+    (about 107 bytes), else the same directory by way of an open descriptor
+    (``/proc/self/fd/N``, which the threads of this process share), so that
+    a run under a long temporary directory stays inside it. Returns the
+    directory and the descriptor to close, if one was opened."""
+    from cqs_tpu_torch.daemon.protocol import socket_path
+
+    if len(os.fsencode(str(socket_path(index_dir)))) <= 100:
+        return index_dir, None
+    fd = os.open(index_dir, os.O_RDONLY | os.O_DIRECTORY)
+    return Path(f"/proc/self/fd/{fd}"), fd
+
+
+def hit_pairs(results) -> list[tuple[str, float]]:
+    return [(h["id"], h["score"]) for h in results]
+
+
+def same_hits(got, want, tol: float = 1e-5) -> bool:
+    return [i for i, _ in got] == [i for i, _ in want] and all(
+        abs(a - b) <= tol for (_, a), (_, b) in zip(got, want))
+
+
+def dense_artifacts(slot_path: Path) -> dict:
+    """The rows of the dense artifacts the index command saved, as a daemon
+    loads them (fp16 widened to f32): {index name: {chunk id: row}}."""
+    import numpy as np
+
+    from cqs_tpu_torch.search.engine import DENSE_BASE_FILE, DENSE_FILE
+
+    out = {}
+    for name, filename in (("dense", DENSE_FILE), ("dense_base", DENSE_BASE_FILE)):
+        with np.load(slot_path / filename, allow_pickle=False) as z:
+            mat = z["matrix"].astype(np.float32)
+            out[name] = {str(cid): mat[i] for i, cid in enumerate(z["ids"])}
+    return out
+
+
+def indexes_in_layout(torch, store, eng, dev, loaded: dict) -> dict:
+    """Dense, base and sparse indexes in the row layout of ``eng``'s indexes
+    (tombstoned rows stay, empty and masked), each beside the index it
+    mirrors: {name: (new, current)}. A dense row the daemon loaded from an
+    artifact (``loaded``, from :func:`dense_artifacts`) takes the artifact's
+    values, a row appended since takes the store's f32 values; the sparse
+    artifact holds the store's values as they are."""
+    import numpy as np
+
+    from cqs_tpu_torch.index import DenseIndex, SpladeIndex
+
+    out = {}
+    for name, base in (("dense", False), ("dense_base", True)):
+        cur = getattr(eng, name)
+        ids, mat = store.load_embeddings(base=base)
+        row = {cid: i for i, cid in enumerate(ids)}
+        laid = np.zeros((len(cur.ids), mat.shape[1]), np.float32)
+        for i, cid in enumerate(cur.ids):
+            if cid:
+                laid[i] = loaded[name][cid] if cid in loaded[name] else mat[row[cid]]
+        out[name] = (DenseIndex(list(cur.ids), laid, cur.stamp, device=dev), cur)
+    cur = eng.sparse
+    terms = {cid: (t, w) for cid, t, w in store.load_sparse()}
+    doc_ids = np.zeros((len(cur.ids), cur.T), np.int32)
+    doc_w = np.zeros((len(cur.ids), cur.T), np.float32)
+    for i, cid in enumerate(cur.ids):
+        if cid and cid in terms:
+            t, w = terms[cid]
+            n = min(len(t), cur.T)
+            doc_ids[i, :n], doc_w[i, :n] = t[:n], w[:n]
+    out["sparse"] = (SpladeIndex(list(cur.ids), doc_ids, doc_w, cur.vocab_size, cur.stamp,
+                                 device=dev, sketch_dim=cur.sketch_dim), cur)
+    return out
+
+
+def phase_serve(torch, dev, report, smi: str):
+    """The warm daemon on the card, in this process: ``DaemonServer`` over a
+    micro-batching ``BatchContext`` on the repository corpus, asked over its
+    Unix socket by 1, 4 and 16 client threads; the watch loop's incremental
+    refresh while clients keep asking; the batch, MCP and web surfaces; the
+    idle unload. Any error answer fails the run."""
+    from cqs_tpu_torch.cli.context import CommandContext
+    from cqs_tpu_torch.cli.main import main
+    from cqs_tpu_torch.daemon import BatchContext, DaemonServer, ping, request
+    from cqs_tpu_torch.daemon.batch import run_batch_loop
+    from cqs_tpu_torch.daemon.mcp import serve_stdio
+    from cqs_tpu_torch.daemon.serve import run_server
+    from cqs_tpu_torch.daemon.watch import WatchLoop
+    from cqs_tpu_torch.ops.topk import LOOP_SPLIT
+    import threading
+    import urllib.request
+
+    tmp = Path(tempfile.mkdtemp(prefix="cq"))
+    ctx = bctx = server = httpd = sock_fd = None
+    out: dict = {}
+    try:
+        proj = tmp / "c"
+        proj.mkdir()
+        copy_corpus(proj)
+        (proj / "docs" / "doomed_module.py").write_text(DOOMED_FILE)
+        rc, env, ms = run_cli(main, ["index", "--path", str(proj), "--device", str(dev), "--json"])
+        if rc != 0 or env is None:
+            fail(f"serve: index exited {rc}")
+        ctx = CommandContext.create(str(proj), device=dev)
+        # the daemon starts as ``watch --serve`` does after ``index``: its
+        # indexes are loaded from the artifacts the index command saved (the
+        # dense ones hold fp16), and rows appended later come from the
+        # store's f32 values
+        loaded = dense_artifacts(ctx.slot_path)
+        saved = {a: a.stat().st_mtime_ns for a in ctx.slot_path.glob("*.npz")}
+        eng = ctx.engine
+        if len(saved) != 3 or any(a.stat().st_mtime_ns != t for a, t in saved.items()):
+            fail(f"serve: the daemon's engine did not load the index command's artifacts "
+                 f"({sorted(a.name for a in saved)}): it built and saved them anew")
+        bctx = BatchContext(ctx, micro_batch=True)
+        bctx.warm()
+        sock_dir, sock_fd = socket_dir(ctx.index_dir)
+        server = DaemonServer(bctx, sock_dir)
+        server.start()
+        if not ping(sock_dir):
+            fail("serve: the daemon does not answer ping")
+        def on_the_card(when: str) -> None:
+            for t in (eng.dense.matrix, eng.dense.mask, eng.dense_base.matrix,
+                      eng.sparse.sketch, eng.sparse.doc_ids, eng.sparse.doc_w, eng.sparse.mask,
+                      eng.embedder._table):
+                if not t.is_cuda:
+                    fail(f"serve: {when}: an index or model tensor is not on the card")
+
+        on_the_card("at the start")
+        print(f"serve: daemon on {server.path} over {eng.dense.count} rows "
+              f"(capacity {eng.dense.capacity}), indexed in {ms / 1e3:.1f} s")
+
+        errors: list[str] = []     # what client threads found; the main thread fails on it
+
+        def ask(command: str, args: dict) -> dict:
+            resp = request(sock_dir, command, args, timeout=120.0)
+            if resp is None or "error" in resp or not resp.get("ok"):
+                raise RuntimeError(f"serve: {command} {args} answered {resp}")
+            return resp
+
+        def in_thread(fn, *a):
+            """A thread target: an exception ends the thread and is kept."""
+            def run():
+                try:
+                    fn(*a)
+                except Exception as e:
+                    errors.append(f"{type(e).__name__}: {e}")
+            return threading.Thread(target=run)
+
+        texts = {(k, q): f"{q} {SERVE_WORDS[k]}" for k in range(16) for q in QUERIES}
+        solo = {t: [(h.row.id, round(h.score, 6)) for h in eng.search(t).hits]
+                for t in texts.values()}
+        if not all(solo.values()):
+            fail("serve: a solo search has no hits")
+
+        def run_round(n_clients: int) -> dict:
+            """n_clients threads, each sending its own variant of the query
+            list, one connection a request; round-trip times on the host
+            clock."""
+            with eng.index_lock:
+                eng._result_cache = {}
+            before = bctx.batcher_stats() or {"fused": 0, "batches": 0, "solo": 0,
+                                              "cache_hits": 0, "batch_size_hist": {}}
+            launches = LOOP_SPLIT.launches
+            rtt: list[float] = []
+            lock = threading.Lock()
+
+            def client(k: int) -> None:
+                mine = []
+                for q in QUERIES:
+                    t0 = time.perf_counter()
+                    resp = ask("search", {"query": texts[(k, q)]})
+                    mine.append((time.perf_counter() - t0) * 1e3)
+                    if not same_hits(hit_pairs(resp["results"]), solo[texts[(k, q)]]):
+                        raise RuntimeError(f"serve: hits of {texts[(k, q)]!r} over the "
+                                           f"socket differ from the solo search")
+                with lock:
+                    rtt.extend(mine)
+
+            threads = [in_thread(client, k) for k in range(n_clients)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            if errors:
+                fail(errors[0])
+            if any(t.is_alive() for t in threads) or len(rtt) != n_clients * len(QUERIES):
+                fail(f"serve: {n_clients} clients: a client did not finish")
+            after = bctx.batcher_stats()
+            fused = after["fused"] - before["fused"]
+            batches = after["batches"] - before["batches"]
+            rtt.sort()
+            return {"clients": n_clients, "requests": len(rtt), "qps": len(rtt) / wall,
+                    "median_ms": statistics.median(rtt),
+                    "p95_ms": rtt[min(len(rtt) - 1, int(0.95 * len(rtt)))],
+                    "fused": fused, "batches": batches,
+                    "solo": after["solo"] - before["solo"],
+                    "cache_hits": after["cache_hits"] - before["cache_hits"],
+                    "mean_batch": fused / batches if batches else 0.0,
+                    "loop_split_launches": LOOP_SPLIT.launches - launches}
+
+        run_round(2)                                  # warm-up, not reported
+        out["rounds"] = [run_round(n) for n in (1, 4, 16)]
+        for r in out["rounds"]:
+            print(f"serve: {r['clients']:2d} clients: {r['qps']:.1f} queries/s over the socket, "
+                  f"round trip median {r['median_ms']:.2f} ms, p95 {r['p95_ms']:.2f} ms; "
+                  f"{r['batches']} batches, mean size {r['mean_batch']:.2f}, "
+                  f"{r['solo']} run solo, {r['cache_hits']} cache hits, "
+                  f"{r['loop_split_launches']} {LOOP_SPLIT.name} launches; {smi}")
+            if r["loop_split_launches"] <= 0:
+                fail(f"serve: the socket path did not launch {LOOP_SPLIT.name}")
+        hist = bctx.batcher_stats()["batch_size_hist"]
+        if max(hist) <= 1:
+            fail(f"serve: no batch held more than one query: {hist}")
+        out["batch_size_hist"] = {str(k): v for k, v in sorted(hist.items())}
+
+        # -- the watch loop refreshes the index while clients keep asking
+        loop = WatchLoop(ctx)
+        if loop.reconcile_once() != 0:
+            fail("serve: the first reconcile found changes in an unchanged corpus")
+        (proj / "cqs_tpu" / "zz_added_module.py").write_text(ADDED_FILE)
+        edited = proj / "scripts" / "torch_ab.py"
+        edited.write_text(edited.read_text() + EDIT_TAIL)
+        (proj / "docs" / "doomed_module.py").unlink()
+        # what the indexes' first upload copied to the card: every index
+        # tensor's host array holds 4-byte elements
+        full_upload = 4 * sum(t.numel() for t in (
+            eng.dense.matrix, eng.dense.mask, eng.dense_base.matrix, eng.dense_base.mask,
+            eng.sparse.doc_ids, eng.sparse.doc_w, eng.sparse.sketch, eng.sparse.mask))
+        timing: dict = {"uploaded": 0}
+        refresh = eng.refresh_incremental
+        from_numpy = torch.from_numpy
+        refresher = threading.current_thread()
+
+        def counted_from_numpy(a):
+            """Every host array the indexes send to the card is wrapped by
+            ``torch.from_numpy`` first: its bytes are counted on the
+            refreshing thread (client threads upload their queries too)."""
+            if threading.current_thread() is refresher:
+                timing["uploaded"] += a.nbytes
+            return from_numpy(a)
+
+        def timed_refresh():
+            torch.cuda.synchronize()
+            torch.from_numpy = counted_from_numpy
+            t0 = time.perf_counter()
+            try:
+                timing["outcome"] = refresh()
+            finally:
+                torch.from_numpy = from_numpy
+            torch.cuda.synchronize()
+            timing["ms"] = (time.perf_counter() - t0) * 1e3
+            return timing["outcome"]
+
+        eng.refresh_incremental = timed_refresh
+        stop = threading.Event()
+        asked = []
+
+        def background(k: int) -> None:
+            while not stop.is_set():
+                ask("search", {"query": f"{QUERIES[k]} {SERVE_WORDS[len(asked) % 16]} again"})
+                asked.append(k)
+
+        bg = [in_thread(background, k) for k in range(4)]
+        for t in bg:
+            t.start()
+        try:
+            t0 = time.perf_counter()
+            changed = loop.reconcile_once()
+            reconcile_s = time.perf_counter() - t0
+        finally:
+            stop.set()
+            for t in bg:
+                t.join(timeout=120)
+            del eng.refresh_incremental
+        if errors:
+            fail(errors[0])
+        if any(t.is_alive() for t in bg):
+            fail("serve: a client that asked during the refresh did not finish")
+        outcome = timing.get("outcome") or {}
+        if changed != 3 or "rebuilt" in outcome or not (
+                outcome.get("appended", 0) >= 2 and outcome.get("tombstoned", 0) >= 1):
+            fail(f"serve: reconcile of 3 changed files gave {changed} and {outcome}")
+        on_the_card("after the refresh")
+        moved = timing["uploaded"]
+        if moved <= 0 or moved >= full_upload // 8:
+            fail(f"serve: the refresh copied {moved} bytes to the card "
+                 f"(the first upload was {full_upload})")
+        out["refresh"] = {"outcome": outcome, "refresh_ms": timing["ms"],
+                          "reconcile_s": reconcile_s, "uploaded_bytes": moved,
+                          "first_upload_bytes": full_upload, "asked_meanwhile": len(asked)}
+        print(f"serve: reconcile of 3 changed files in {reconcile_s:.2f} s; "
+              f"refresh_incremental {outcome} in {timing['ms']:.2f} ms, copied {moved} bytes "
+              f"to the card (first upload {full_upload}); {len(asked)} queries answered "
+              f"meanwhile; {smi}")
+        names = [h["name"] for h in ask("search", {"query": "quuxify flange adapter"})["results"]]
+        if "quuxify_flange_adapter" not in names[:3]:
+            fail(f"serve: the added function is not found after the refresh: {names}")
+        names = [h["name"] for h in ask("search", {"query": "wobble sprocket tally"})["results"]]
+        if "wobble_sprocket_tally" not in names[:3]:
+            fail(f"serve: the edited file's new function is not found: {names}")
+        gone = ask("search", {"query": "zygomorphic petal counter"})["results"]
+        if any(h["origin"].endswith("doomed_module.py") for h in gone):
+            fail("serve: a chunk of the deleted file is still answered")
+        checks = QUERIES + ["quuxify flange adapter", "wobble sprocket tally",
+                            "zygomorphic petal counter"]
+        fresh_ctx = CommandContext.create(str(proj), device=dev)
+        try:
+            fresh = fresh_ctx.engine
+            if "" in fresh.dense.ids or "" not in eng.dense.ids:
+                fail("serve: the fresh engine was not built anew, or nothing was tombstoned")
+            # (1) a fresh engine, its indexes rebuilt from the store: rows are
+            # numbered anew, so rows change tiles, each tile gives its own
+            # candidates, and min-max normalisation and the leg ranks run over
+            # the candidates: the head agrees, the tail's order may not
+            overlap = []
+            for q in checks:
+                warm = [h.row.id for h in eng.search(q).hits]
+                cold = [h.row.id for h in fresh.search(q).hits]
+                if warm[:1] != cold[:1]:
+                    fail(f"serve: {q!r}: refreshed and rebuilt engines differ in the top "
+                         f"hit: {warm[:1]} against {cold[:1]}")
+                overlap.append(len(set(warm) & set(cold)) / max(len(cold), 1))
+            if statistics.mean(overlap) < 0.9:
+                fail(f"serve: refreshed and rebuilt engines share {overlap} of their hits")
+            # (2) the same engine with indexes built in the refreshed layout
+            # (tombstones kept) from what the daemon was given: the
+            # artifacts' values for the rows it loaded, the store's for the
+            # rows the refresh appended. Every live row's tensors equal bit
+            # for bit, the appended rows among them, and every hit equal
+            n_new = sum(1 for c in eng.dense.ids if c and c not in loaded["dense"])
+            if n_new != outcome["appended"]:
+                fail(f"serve: {n_new} rows of the refreshed index were not in the artifact, "
+                     f"the refresh appended {outcome['appended']}")
+            relaid = indexes_in_layout(torch, fresh_ctx.store, eng, dev, loaded)
+            for name, (new, cur) in relaid.items():
+                live = torch.tensor([bool(c) for c in cur.ids], device=dev)
+                pairs = ([(new.matrix, cur.matrix)] if name != "sparse" else
+                         [(new.doc_ids, cur.doc_ids), (new.doc_w, cur.doc_w),
+                          (new.sketch, cur.sketch)])
+                for a, b in pairs:
+                    if not torch.equal(a[: len(live)][live], b[: len(live)][live]):
+                        fail(f"serve: {name}: a refreshed tensor differs from the artifact's "
+                             f"(loaded rows) or the store's (appended rows) values")
+                if not torch.equal(new.mask, cur.mask) or new.ids_digest != cur.ids_digest:
+                    fail(f"serve: {name}: mask or ids of the refreshed index are off")
+            with fresh.index_lock:
+                fresh.dense, fresh.dense_base = relaid["dense"][0], relaid["dense_base"][0]
+                fresh.sparse = relaid["sparse"][0]
+                fresh._row_of, fresh._result_cache = fresh.dense.row_of, {}
+            for q in checks:
+                warm = [(h.row.id, h.score) for h in eng.search(q).hits]
+                cold = [(h.row.id, h.score) for h in fresh.search(q).hits]
+                if not same_hits(warm, cold):
+                    fail(f"serve: {q!r}: the refreshed engine and one built from the store "
+                         f"in the same layout differ: {warm} against {cold}")
+        finally:
+            fresh_ctx.close()
+        out["refresh"]["rebuilt_overlap"] = statistics.mean(overlap)
+        print(f"serve: refreshed engine == engine built in the same layout from the loaded "
+              f"artifacts' rows and the store's rows for the {n_new} appended, on "
+              f"{len(checks)} queries (tensors bit for bit, hits to 1e-5); against a rebuilt "
+              f"index (rows renumbered) the top hit agrees and {statistics.mean(overlap):.3f} "
+              f"of the top 10")
+
+        # -- the other surfaces over the same table
+        query = {"query": "count sketch of sparse terms store again", "limit": 5}
+        want = hit_pairs(ask("search", query)["results"])
+        line = json.dumps({"command": "search", "args": query})
+        buf = io.StringIO()
+        run_batch_loop(ctx, io.StringIO(line + "\n"), buf)
+        got = json.loads(buf.getvalue())
+        msg = {"jsonrpc": "2.0", "id": 1, "method": "tools/call",
+               "params": {"name": "cqs_search", "arguments": query}}
+        buf, stdin = io.StringIO(), sys.stdin
+        sys.stdin = io.StringIO(json.dumps(msg) + "\n")
+        try:
+            with contextlib.redirect_stdout(buf):
+                serve_stdio(ctx)
+        finally:
+            sys.stdin = stdin
+        mcp = json.loads(buf.getvalue())["result"]
+        httpd, token = run_server(bctx, port=0)
+        url = (f"http://127.0.0.1:{httpd.server_address[1]}/api/search?"
+               f"q={urllib.request.quote(query['query'])}&k=5")
+        req = urllib.request.Request(url, headers={"Authorization": f"Bearer {token}"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            web = json.loads(r.read())
+        for name, results in (("batch loop", got.get("results")),
+                              ("MCP bridge", None if mcp.get("isError")
+                               else json.loads(mcp["content"][0]["text"])),
+                              ("web API", web.get("results"))):
+            if results is None or not same_hits(hit_pairs(results), want):
+                fail(f"serve: the {name} answers {query['query']!r} unlike the socket")
+        print("serve: batch loop, MCP bridge and web API answer as the socket does")
+
+        # -- idle unload, then the table comes back on the card
+        held = torch.cuda.memory_allocated()
+        if not bctx.maybe_idle_unload(idle_s=1e9) or eng.embedder._table is not None:
+            fail("serve: the idle unload did not drop the embedder's table")
+        freed = held - torch.cuda.memory_allocated()
+        if freed <= 0:
+            fail("serve: the idle unload freed no device memory")
+        resp = ask("search", {"query": "reload the table after an idle unload"})
+        table = eng.embedder._table
+        if not resp["results"] or table is None or not table.is_cuda:
+            fail("serve: the query after the idle unload was not answered from the card")
+        out["idle_unload_freed_bytes"] = freed
+        print(f"serve: idle unload freed {freed} bytes of device memory; the next query was "
+              f"answered and the table is back on {table.device}")
+        report["serve"] = out
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        if server is not None:
+            server.stop()
+        if sock_fd is not None:
+            os.close(sock_fd)
+        if bctx is not None:
+            bctx.close()
+        if ctx is not None:
+            ctx.close()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="kernels,e2e,scale")
+    ap.add_argument("--phases", default="kernels,e2e,scale,serve")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not (REPO / "cqs_tpu_torch" / "__init__.py").is_file():
@@ -922,11 +1522,22 @@ def main() -> int:
         phase_daemon(torch, dev, args.seed, report)     # last: it runs the profiler
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in IMPLS}
-    print(f"launches on the main path: {launches}")
+    print(f"launches on the main path (index, search, batcher, scale): {launches}")
     if {"e2e", "scale"} <= phases:
         for k in (*KERNELS, LOOP_SPLIT, LOOP_SPLIT_I8):
             if k.launches == 0:
                 fail(f"kernel {k.name} was not launched on the main path")
+    # the daemon's path has its own count: zeroed just before, read just after
+    for k in IMPLS:
+        k.launches = 0
+    if "serve" in phases:
+        phase_serve(torch, dev, report, smi)
+    torch.cuda.synchronize()
+    serve_launches = {k.name: k.launches for k in IMPLS}
+    if "serve" in phases:
+        print(f"launches on the daemon's path: {serve_launches}")
+        if LOOP_SPLIT.launches == 0:
+            fail(f"kernel {LOOP_SPLIT.name} was not launched on the daemon's path")
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")]
     if loaded:
         fail(f"JAX modules were imported: {loaded[:5]}")
@@ -944,7 +1555,10 @@ def main() -> int:
         own = t is not None and t["kernel"] == k.name
         bound = bound_ms(k.kind, *case[:2], case[3], case[2], case[4])
         kernels.append({"name": k.name, "route": "cuda", "source": k.source,
-                        "replaces": k.replaces, "launches": k.launches,
+                        "replaces": k.replaces,
+                        "launches": launches[k.name] + serve_launches[k.name],
+                        "main_path_launches": launches[k.name],
+                        "daemon_path_launches": serve_launches[k.name],
                         "kernel_phase_launches": kernel_phase[k.name],
                         "max_abs_err": report.get("errs", {}).get(k.name),
                         "shape": dict(zip(("n", "d", "tile", "b", "m"), case)),

@@ -1,0 +1,556 @@
+"""Extraction-fidelity audit: parser output vs an independent line-scanner.
+
+Reference analog: the reference leans on 50+ tree-sitter grammars
+(``src/parser/``, 16k LoC) for extraction precision; our masked-regex engine
+needs its fidelity QUANTIFIED (VERDICT r2 item 8). This audit runs a strict,
+comment/string-aware declaration scanner (regex per language, applied to the
+MASKED source so string-embedded fixtures don't count) over every indexed
+file and reports, per language:
+
+- scanner declarations matched by an indexed chunk (recall proxy)
+- indexed chunks with no scanner support (precision proxy — window rows and
+  container chunks excluded)
+- worst files with the concrete missing names
+
+The scanner shares the masker but NOT the extent/nesting machinery — it is
+deliberately dumber, so disagreements localize real parser bugs (this audit
+caught the multi-line-string brace bug fixed in PARSER_VERSION 5).
+"""
+
+from __future__ import annotations
+
+import re
+from collections import defaultdict
+from pathlib import Path
+
+from cqs_tpu_torch.parser.generic import mask_source
+from cqs_tpu_torch.parser.registry import get_language
+
+# Per-language declaration scanners (name group required). Deliberately
+# minimal: top-of-line decl keywords only.
+_SCANNERS: dict[str, re.Pattern] = {
+    "rust": re.compile(
+        r'^\s*(?:pub(?:\([^)]*\))?\s+)?(?:async\s+|const\s+|unsafe\s+|extern\s+"[^"]*"\s+)*'
+        r"(?:fn|struct|enum|trait|macro_rules!)\s+(?P<name>[A-Za-z_][A-Za-z0-9_]*)"),
+    "python": re.compile(
+        r"^\s*(?:async\s+)?(?:def|class)\s+(?P<name>[A-Za-z_][A-Za-z0-9_]*)"),
+    "go": re.compile(
+        r"^\s*(?:func\s+(?:\([^)]*\)\s+)?|type\s+)(?P<name>[A-Za-z_][A-Za-z0-9_]*)"),
+    "javascript": re.compile(
+        r"^\s*(?:export\s+)?(?:async\s+)?(?:function\*?|class)\s+(?P<name>[A-Za-z_$][A-Za-z0-9_$]*)"),
+    "typescript": re.compile(
+        r"^\s*(?:export\s+)?(?:async\s+)?(?:function\*?|class|interface|enum)\s+"
+        r"(?P<name>[A-Za-z_$][A-Za-z0-9_$]*)"),
+    "java": re.compile(
+        # types OR methods: a method is visibility + modifiers + return type
+        # + name( ... ending in `{` (brace same-line — idiomatic java), which
+        # excludes abstract/interface prototypes ending in `;`
+        r"^\s*(?:public|private|protected)\s+(?:static\s+|final\s+|abstract\s+|sealed\s+)*"
+        r"(?:(?:class|interface|enum|record)\s+(?P<name>[A-Za-z_][A-Za-z0-9_]*)"
+        r"|(?:[A-Za-z_][A-Za-z0-9_.<>,\[\] ]*\s+)(?P<name2>[A-Za-z_][A-Za-z0-9_]*)\s*\([^;{]*\)[^;{]*\{)"),
+    "php": re.compile(
+        r"^\s*(?:abstract\s+|final\s+)?(?:public\s+|private\s+|protected\s+|static\s+)*"
+        r"(?:function|class|interface|trait|enum)\s+&?(?P<name>[A-Za-z_][A-Za-z0-9_]*)"),
+    "csharp": re.compile(
+        # types OR brace-bodied methods (expression-bodied `=> ...;` members
+        # and auto-properties are deliberately out of scanner scope)
+        r"^\s*(?:\[[^\]]*\]\s*)?(?:public|private|protected|internal)\s+"
+        r"(?:static\s+|sealed\s+|abstract\s+|partial\s+|readonly\s+|ref\s+|async\s+|override\s+|virtual\s+)*"
+        r"(?:(?:record\s+struct|record\s+class|class|interface|struct|enum|record)\s+"
+        r"(?P<name>[A-Za-z_][A-Za-z0-9_]*)"
+        r"|(?:[A-Za-z_][A-Za-z0-9_.<>,\[\]? ]*\s+)(?P<name2>[A-Za-z_][A-Za-z0-9_]*)\s*\([^;{]*\)[^;{=]*\{?\s*$)"),
+    "ruby": re.compile(
+        r"^\s*(?:def\s+(?:self\.)?|class\s+|module\s+)(?P<name>[A-Za-z_][A-Za-z0-9_?!]*)"),
+    "kotlin": re.compile(
+        # `fun interface X` names X, not `interface`; extension receivers
+        # (`fun String.toSlug`, `fun Pair<Int, Int>.plus`) are skipped so the
+        # member NAME is what the index is held to (r5 counter-fix round)
+        r"^\s*(?:public\s+|private\s+|internal\s+|protected\s+|open\s+|abstract\s+"
+        r"|final\s+|data\s+|sealed\s+|suspend\s+|inline\s+|operator\s+|override\s+"
+        r"|infix\s+|tailrec\s+|external\s+)*"
+        r"(?:fun\s+interface|fun(?:\s+<[^>]+>)?(?:\s+[A-Za-z_][A-Za-z0-9_]*(?:<[^>]*>)?(?=\.))?"
+        r"|class|interface|object)[\s.]+(?P<name>[A-Za-z_][A-Za-z0-9_]*)"),
+    "swift": re.compile(
+        r"^\s*(?:public\s+|private\s+|internal\s+|open\s+|final\s+|static\s+"
+        r"|override\s+|mutating\s+)*"
+        r"(?:func|class|struct|enum|protocol|extension)\s+(?P<name>[A-Za-z_][A-Za-z0-9_]*)"),
+    # C: top-of-line function DEFINITIONS only (prototypes are declarations
+    # the parser deliberately does not chunk — glibc headers are ~all
+    # prototypes). A definition's param list closes with ')' and its body
+    # brace opens on the same line or the next (Allman) — audit_file gives
+    # these two patterns one-line lookahead via _NEXT_BRACE.
+    "c": re.compile(
+        r"^(?:[A-Za-z_][A-Za-z0-9_ \t\*]*?[ \t\*])"
+        r"(?P<name>[A-Za-z_][A-Za-z0-9_]*)\s*\([^;{]*\)\s*(?:\{\s*)?$"),
+    # C++: class/struct templates + same function shape as C
+    "cpp": re.compile(
+        r"^\s*(?:template\s*<[^>]*>\s*)?(?:class|struct|enum(?:\s+class)?)\s+"
+        r"(?P<name>[A-Za-z_][A-Za-z0-9_]*)\s*(?::|\{|$)"
+        r"|^(?:[A-Za-z_][A-Za-z0-9_:<>,& \t\*]*?[ \t\*&])"
+        r"(?P<name2>[A-Za-z_][A-Za-z0-9_]*)\s*\([^;{]*\)"
+        r"(?:\s*(?:const|noexcept|override))*\s*(?:\{\s*)?$"),
+}
+
+#: languages whose function scanner needs the next line to confirm a body
+#: brace when the decl line doesn't end with '{' (Allman style)
+_NEXT_BRACE = {"c", "cpp"}
+
+
+def audit_file(origin: str, text: str, indexed_names: set[str],
+               lang_name: str) -> tuple[int, list[str]]:
+    """(scanner decl count, names the index is missing)."""
+    lang = get_language(lang_name)
+    scanner = _SCANNERS.get(lang_name)
+    if lang is None or scanner is None:
+        return 0, []
+    masked, _ = mask_source(text, lang)
+    names = []
+    mlines = masked.splitlines()
+    for i, line in enumerate(mlines):
+        m = scanner.match(line)
+        if not m:
+            continue
+        g = m.groupdict()
+        # which alternative fired: the cpp class/struct pattern binds `name`,
+        # the function pattern binds `name2` (c has only the function shape)
+        is_fn_shape = lang_name == "c" or g.get("name2") is not None
+        if (lang_name in _NEXT_BRACE and is_fn_shape
+                and not line.rstrip().endswith("{")):
+            # function shape without a same-line brace: only a definition if
+            # the next non-blank line opens the body (else it's a prototype)
+            nxt = next((l for l in mlines[i + 1:i + 3] if l.strip()), "")
+            if not nxt.lstrip().startswith("{"):
+                continue
+        names.append(g.get("name") or g.get("name2"))
+    names = [n for n in names if n]
+    missing = [n for n in names
+               if n not in indexed_names
+               and not any(i.endswith("." + n) for i in indexed_names)]
+    return len(names), missing
+
+
+def run_audit(store, root: str | Path) -> dict:
+    root = Path(root)
+    by_lang: dict[str, dict] = defaultdict(
+        lambda: {"decls": 0, "matched": 0, "files": 0, "worst": []})
+    origins = [r[0] for r in store.db.execute(
+        "SELECT DISTINCT origin FROM chunks")]
+    for origin in sorted(origins):
+        p = root / origin
+        if not p.is_file():
+            continue
+        lang_row = store.db.execute(
+            "SELECT language FROM chunks WHERE origin = ? LIMIT 1", (origin,)).fetchone()
+        lang_name = lang_row[0] if lang_row else None
+        if lang_name not in _SCANNERS:
+            continue
+        idx_names = {r[0].split("#w")[0] for r in store.db.execute(
+            "SELECT name FROM chunks WHERE origin = ?", (origin,))}
+        qual = {r[0] for r in store.db.execute(
+            "SELECT parent_name || '.' || name FROM chunks "
+            "WHERE origin = ? AND parent_name IS NOT NULL", (origin,))}
+        try:
+            text = p.read_text(errors="replace")
+        except OSError:
+            continue
+        n, missing = audit_file(origin, text, idx_names | qual, lang_name)
+        s = by_lang[lang_name]
+        s["decls"] += n
+        s["matched"] += n - len(missing)
+        s["files"] += 1
+        if missing:
+            s["worst"].append({"origin": origin, "missing": missing[:8],
+                               "count": len(missing)})
+    out = {}
+    for lang, s in sorted(by_lang.items()):
+        s["worst"].sort(key=lambda w: -w["count"])
+        out[lang] = {
+            "files": s["files"], "decls": s["decls"],
+            "recall": round(s["matched"] / s["decls"], 4) if s["decls"] else 1.0,
+            "worst": s["worst"][:10],
+        }
+    return out
+
+
+# --- Rust call-edge ground truth (VERDICT r4 item 3) ----------------------
+#
+# Rust has no stdlib parser to borrow, so the ground truth is a SECOND,
+# independent extractor built for the audit: a character-level lexer that
+# scrubs comments (NESTED block comments — rustc semantics, which
+# mask_source's first-*/ scan does not implement), cooked/raw/byte strings,
+# and char-vs-lifetime quotes, followed by a token-lookahead call scanner
+# that understands turbofish (`parse::<u32>(`), path calls (`Vec::new(`),
+# method calls, and macro invocations. It shares NOTHING with
+# parser/generic.py (different masking algorithm, different call grammar),
+# so agreement bounds real fidelity and disagreement localizes bugs — the
+# same design as audit_calls_python's `ast` cross-check.
+# Ref: src/parser/calls.rs (3,770 LoC of per-language call extraction).
+
+_RUST_KEYWORDS = frozenset(
+    """as break const continue crate dyn else enum extern false fn for if impl
+    in let loop match mod move mut pub ref return self Self static struct super
+    trait true type unsafe use where while async await union macro yield
+    try box""".split())
+
+
+def _rust_scrub(text: str) -> str:
+    """Blank comment/string/char contents, preserving length and newlines.
+    Independent reimplementation: handles rustc's NESTED block comments and
+    raw strings r#"…"# with arbitrary hash depth (mask_source handles
+    neither nesting nor hash-delimited raws)."""
+    n = len(text)
+    out = list(text)
+
+    def blank(a: int, b: int) -> None:
+        for k in range(a, b):
+            if out[k] != "\n":
+                out[k] = " "
+
+    i = 0
+    while i < n:
+        c = text[i]
+        if c == "/" and text.startswith("//", i):
+            j = text.find("\n", i)
+            j = n if j == -1 else j
+            blank(i, j)
+            i = j
+        elif c == "/" and text.startswith("/*", i):
+            depth, j = 1, i + 2
+            while j < n and depth:
+                if text.startswith("/*", j):
+                    depth += 1
+                    j += 2
+                elif text.startswith("*/", j):
+                    depth -= 1
+                    j += 2
+                else:
+                    j += 1
+            blank(i, j)
+            i = j
+        elif c in "rb" and _rust_raw_start(text, i):
+            j = _rust_raw_end(text, i)
+            blank(i + 1, j)          # keep the leading char so idents survive
+            i = j
+        elif c == '"' or (c == "b" and text.startswith('b"', i)
+                          and not _ident_tail(text, i)):
+            j = i + (2 if c == "b" else 1)
+            while j < n and text[j] != '"':
+                j += 2 if text[j] == "\\" else 1
+            j = min(j + 1, n)
+            blank(i + 1, j - 1)
+            i = j
+        elif c == "'" and (not _ident_tail(text, i)
+                           or (text[i - 1] == "b"
+                               and not _ident_tail(text, i - 1))):
+            # the b-prefix case covers byte-char literals: b'"' must not
+            # leak its inner quote into string-parity (caught on
+            # src/parser/chunk.rs — the quote flipped 100+ lines)
+            # char literal vs lifetime: a literal closes with ' in a short,
+            # known shape ('x', '\\', '\'', '\u{10FFFF}'); a lifetime never
+            # closes. The escape is exactly ONE backslash + one char (or
+            # u{...}) — scanning past it as a general escape loop swallowed
+            # '\\' literals and 55 lines after them (caught by this audit's
+            # first run against the extractor).
+            j = i + 1
+            if j < n and text[j] == "\\":
+                if j + 1 < n and text[j + 1] == "u":
+                    close = text.find("'", j + 2, j + 12)
+                else:
+                    close = j + 2 if j + 2 < n and text[j + 2] == "'" else -1
+            elif j + 1 < n and text[j + 1] == "'" and text[j] != "'":
+                close = j + 1
+            else:
+                close = -1
+            if close != -1:
+                blank(i + 1, close)
+                i = close + 1
+            else:
+                i += 1               # lifetime quote: leave the ident
+        else:
+            i += 1
+    return "".join(out)
+
+
+def _ident_tail(text: str, i: int) -> bool:
+    """text[i] is preceded by an identifier char (so a quote here is not a
+    literal opener — e.g. the ' in `it's` never occurs in scrubbed code, but
+    `b` in `grab"` must not read as a byte-string prefix)."""
+    return i > 0 and (text[i - 1].isalnum() or text[i - 1] == "_")
+
+
+def _rust_raw_start(text: str, i: int) -> bool:
+    if _ident_tail(text, i):
+        return False
+    j = i + 1
+    if text.startswith("br", i) or text.startswith("rb", i):
+        j = i + 2
+    elif not text.startswith("r", i):
+        return False
+    k = j
+    while k < len(text) and text[k] == "#":
+        k += 1
+    return k < len(text) and text[k] == '"'
+
+
+def _rust_raw_end(text: str, i: int) -> int:
+    j = i
+    while j < len(text) and text[j] in "br":
+        j += 1
+    hashes = 0
+    while j < len(text) and text[j] == "#":
+        hashes += 1
+        j += 1
+    j += 1                           # opening quote
+    close = '"' + "#" * hashes
+    e = text.find(close, j)
+    return len(text) if e == -1 else e + len(close)
+
+
+_R_IDENT = re.compile(r"[A-Za-z_][A-Za-z0-9_]*")
+
+
+def _skip_ws(s: str, i: int) -> int:
+    while i < len(s) and s[i] in " \t\n\r":
+        i += 1
+    return i
+
+
+def _skip_turbofish(s: str, i: int) -> int:
+    """At `::<`, skip the balanced generic args; return index after `>`
+    (or i unchanged if no turbofish here)."""
+    j = _skip_ws(s, i)
+    if not s.startswith("::", j):
+        return i
+    k = _skip_ws(s, j + 2)
+    if k >= len(s) or s[k] != "<":
+        return i
+    depth = 0
+    while k < len(s):
+        if s[k] == "<":
+            depth += 1
+        elif s[k] == ">":
+            depth -= 1
+            if depth == 0:
+                return k + 1
+        elif s[k] in ";{}":
+            return i                 # gave up: not a turbofish
+        k += 1
+    return i
+
+
+def rust_call_ground_truth(text: str) -> list[tuple[str, int, str, str | None]]:
+    """All call sites in a Rust source: (name, 1-based line, kind, receiver).
+    kind ∈ {call, method_call, path_call, macro}. Token-lookahead over the
+    scrubbed text; true Rust keywords excluded (`match (tuple)` is not a
+    call — the audit exposed exactly that phantom in the masked-regex
+    extractor's C-keyword list)."""
+    s = _rust_scrub(text)
+    lines = [0]
+    for m in re.finditer("\n", s):
+        lines.append(m.end())
+    import bisect
+
+    def line_of(pos: int) -> int:
+        return bisect.bisect_right(lines, pos)
+
+    calls: list[tuple[str, int, str, str | None]] = []
+    for m in _R_IDENT.finditer(s):
+        name = m.group(0)
+        e = m.end()
+        if _ident_tail(s, m.start()):
+            continue
+        # macro: ident!( / ![ / !{ — the bang must be ADJACENT (with a gap
+        # it's negation: `if !(cond)`) and keywords can't name macros
+        if e < len(s) and s[e] == "!":
+            k = _skip_ws(s, e + 1)
+            if (k < len(s) and s[k] in "([{"
+                    and name not in ("macro_rules",)
+                    and name not in _RUST_KEYWORDS):
+                calls.append((name, line_of(m.start()), "macro", None))
+            continue
+        if name in _RUST_KEYWORDS:
+            continue
+        # `fn name(` is a DECLARATION site, not a call (matters for nested
+        # fns inside an audited chunk's span)
+        pw = m.start() - 1
+        while pw >= 0 and s[pw] in " \t\n\r":
+            pw -= 1
+        if pw >= 1 and s[pw - 1:pw + 1] == "fn" and not _ident_tail(s, pw - 1):
+            continue
+        # optional turbofish, then a call paren
+        j2 = _skip_turbofish(s, e)
+        j2 = _skip_ws(s, j2)
+        if j2 >= len(s) or s[j2] != "(":
+            continue
+        # preceding context: '.' => method, '::' => path call, else direct
+        p = m.start() - 1
+        while p >= 0 and s[p] in " \t\n\r":
+            p -= 1
+        if p >= 0 and s[p] == ".":
+            # receiver = ident immediately before the dot, if any
+            q = p - 1
+            while q >= 0 and s[q] in " \t\n\r":
+                q -= 1
+            recv = None
+            if q >= 0 and (s[q].isalnum() or s[q] == "_"):
+                rs = q
+                while rs >= 0 and (s[rs].isalnum() or s[rs] == "_"):
+                    rs -= 1
+                recv = s[rs + 1:q + 1]
+            calls.append((name, line_of(m.start()), "method_call", recv))
+        elif p >= 1 and s[p] == ":" and s[p - 1] == ":":
+            q = p - 2
+            while q >= 0 and s[q] in " \t\n\r":
+                q -= 1
+            recv = None
+            if q >= 0 and (s[q].isalnum() or s[q] == "_"):
+                rs = q
+                while rs >= 0 and (s[rs].isalnum() or s[rs] == "_"):
+                    rs -= 1
+                recv = s[rs + 1:q + 1]
+            elif q >= 0 and s[q] == ">":
+                recv = None          # `<T as Trait>::method(` — qualified
+            calls.append((name, line_of(m.start()), "path_call", recv))
+        else:
+            calls.append((name, line_of(m.start()), "call", None))
+    return calls
+
+
+def audit_calls_rust(store, root: str | Path, max_files: int = 400) -> dict:
+    """Call-edge extraction fidelity for Rust, cross-checked against the
+    independent lexer-based scanner above (VERDICT r4 item 3: Rust is 288 of
+    the gate corpus's 674 files and had zero quantified call-edge fidelity).
+
+    Same protocol as audit_calls_python: ground-truth calls attributed to
+    the indexed chunk whose line span contains them, compared as per-chunk
+    callee-name SETS (recall = gt edges the extractor recorded, precision =
+    extractor edges gt confirms), plus a kind-confusion table on the
+    matched names. Extractor-contract exclusions applied to gt: bare
+    self-recursion (suppressed by design) — nothing else."""
+    root = Path(root)
+    tp = fp = fn_ = 0
+    files = 0
+    worst: list[dict] = []
+    kind_confusion: dict[str, int] = defaultdict(int)
+    origins = [r[0] for r in store.db.execute(
+        "SELECT DISTINCT origin FROM chunks WHERE language = 'rust' "
+        "ORDER BY origin")][:max_files]
+    for origin in origins:
+        # .rs only: markdown fences index as rust CHUNKS but the file-level
+        # ground-truth scan would read the surrounding prose as Rust
+        if not origin.endswith(".rs"):
+            continue
+        p = root / origin
+        if not p.is_file():
+            continue
+        try:
+            text = p.read_text(errors="replace")
+        except OSError:
+            continue
+        files += 1
+        gt_calls = rust_call_ground_truth(text)
+        spans = list(store.db.execute(
+            "SELECT id, name, line_start, line_end FROM chunks "
+            "WHERE origin = ? AND chunk_type IN ('function','method','test') "
+            "AND parent_id IS NULL", (origin,)))
+        for cid, cname, ls, le in spans:
+            # drop only BARE recursion from gt (the extractor's documented
+            # suppression); receiver/path self-calls (`CagraIndex::len(self)`
+            # inside `fn len`) are real edges the extractor keeps
+            gt_in = [(n, k) for n, ln, k, _ in gt_calls
+                     if ls <= ln <= le and not (k == "call" and n == cname)]
+            gt = {n for n, _ in gt_in}
+            gt_kind = {n: k for n, k in gt_in}
+            rows = store.callees_of(cid)
+            got = {r[0] for r in rows}
+            got_kind = {r[0]: r[2] for r in rows}
+            inter = gt & got
+            tp += len(inter)
+            fp += len(got - gt)
+            fn_ += len(gt - got)
+            for n in inter:
+                kind_confusion[f"{gt_kind[n]}->{got_kind[n]}"] += 1
+            if gt - got or got - gt:
+                worst.append({"origin": origin, "chunk": cname,
+                              "missed": sorted(gt - got)[:6],
+                              "phantom": sorted(got - gt)[:6],
+                              "n": len(gt - got) + len(got - gt)})
+    worst.sort(key=lambda w: -w["n"])
+    return {
+        "files": files,
+        "edges_gt": tp + fn_, "edges_extracted": tp + fp,
+        "recall": round(tp / (tp + fn_), 4) if tp + fn_ else 1.0,
+        "precision": round(tp / (tp + fp), 4) if tp + fp else 1.0,
+        "kind_confusion": dict(sorted(kind_confusion.items(),
+                                      key=lambda kv: -kv[1])),
+        "worst": worst[:15],
+    }
+
+
+def audit_calls_python(store, root: str | Path, max_files: int = 200) -> dict:
+    """Call-edge extraction fidelity for Python, cross-checked against the
+    stdlib ``ast`` (VERDICT r3 item 4: call-edge precision/recall had no
+    quantitative bound; the reference's extraction nuance lives in
+    src/parser/calls.rs, 3,770 LoC).
+
+    Ground truth: every ``ast.Call`` in a file, named by bare callee
+    (``foo(...)`` -> foo, ``obj.meth(...)`` -> meth), attributed to the
+    indexed chunk whose line span contains it — the same attribution rule
+    the regex extractor uses, so scope mapping cancels out and the diff
+    isolates extraction quality. Compared as per-chunk callee-name SETS:
+
+    - recall    = ast edges the extractor also recorded
+    - precision = extractor edges ast confirms (over-claims = phantom calls)
+    """
+    import ast as ast_mod
+
+    root = Path(root)
+    tp = fp = fn_ = 0
+    files = 0
+    worst: list[dict] = []
+    origins = [r[0] for r in store.db.execute(
+        "SELECT DISTINCT origin FROM chunks WHERE language = 'python' "
+        "ORDER BY origin")][:max_files]
+    for origin in origins:
+        p = root / origin
+        if not p.is_file():
+            continue
+        try:
+            tree = ast_mod.parse(p.read_text(errors="replace"))
+        except SyntaxError:
+            continue
+        files += 1
+        gt_calls: list[tuple[str, int]] = []
+        for node in ast_mod.walk(tree):
+            if isinstance(node, ast_mod.Call):
+                f = node.func
+                name = (f.id if isinstance(f, ast_mod.Name)
+                        else f.attr if isinstance(f, ast_mod.Attribute) else None)
+                if name:
+                    gt_calls.append((name, node.lineno))
+        spans = list(store.db.execute(
+            "SELECT id, name, line_start, line_end FROM chunks "
+            "WHERE origin = ? AND chunk_type IN ('function','method','test') "
+            "AND parent_id IS NULL", (origin,)))
+        for cid, cname, ls, le in spans:
+            gt = {n for n, ln in gt_calls if ls <= ln <= le}
+            # own name recursion aside, the extractor drops self-mentions on
+            # the def line; ground truth follows the same span rule
+            got = {c[0] for c in store.callees_of(cid)}
+            inter = gt & got
+            tp += len(inter)
+            fp += len(got - gt)
+            fn_ += len(gt - got)
+            if gt - got or got - gt:
+                worst.append({"origin": origin, "chunk": cname,
+                              "missed": sorted(gt - got)[:6],
+                              "phantom": sorted(got - gt)[:6],
+                              "n": len(gt - got) + len(got - gt)})
+    worst.sort(key=lambda w: -w["n"])
+    return {
+        "files": files,
+        "edges_ast": tp + fn_, "edges_extracted": tp + fp,
+        "recall": round(tp / (tp + fn_), 4) if tp + fn_ else 1.0,
+        "precision": round(tp / (tp + fp), 4) if tp + fp else 1.0,
+        "worst": worst[:15],
+    }

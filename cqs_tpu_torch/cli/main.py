@@ -1,25 +1,26 @@
-"""CLI entry point: ``python -m cqs_tpu_torch index`` and
+"""CLI entry point: ``python -m cqs_tpu_torch <command>`` and
 ``python -m cqs_tpu_torch "query" [--json] [--device cuda|cpu]``.
 
-Port of the ``index`` and ``search`` commands of ``cqs_tpu/cli``
-(``main.py``, ``commands.py::cmd_index``/``cmd_search``), with the same JSON
-envelope from the port's own copy of the reference's ``envelope.py``
-(pinned to it by ``tests/test_torch_standalone.py``). A bare first argument that
-is not a command is a search query. Every other command of the reference
-exits non-zero with "not yet ported". ``--device`` defaults to ``cuda`` and
-fails loudly where there is no GPU; ``--device cpu`` runs the plain scans.
+Port of ``cqs_tpu/cli/main.py``: the parser with the reference's flags for
+the commands the port serves, the bare-query default (a first argument that
+is not a command is a search query), and the dispatch that forwards the
+read commands to a live daemon (``daemon/client.py::FORWARDABLE``) before
+it runs them in-process. The handlers are in ``cli/commands.py``
+(``HANDLERS``); a reference command without one exits 2 with "not yet
+ported". ``--device`` defaults to ``cuda`` and fails loudly where there is no
+GPU; ``--device cpu`` runs the plain scans. A daemon answers on the device
+it was started on, whatever ``--device`` the forwarding CLI was given.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
+import json
 import sys
-import time
-from pathlib import Path
 
-from cqs_tpu_torch.cli.envelope import emit, envelope, staleness_meta
-from cqs_tpu_torch.utils.trace import configure as configure_tracing, record_telemetry
+from cqs_tpu_torch.cli.commands import HANDLERS
+from cqs_tpu_torch.cli.envelope import emit, envelope
+from cqs_tpu_torch.utils.trace import configure as configure_tracing
 
 #: the reference CLI's commands (cqs_tpu/cli/main.py KNOWN_COMMANDS)
 REFERENCE_COMMANDS = {
@@ -35,7 +36,9 @@ REFERENCE_COMMANDS = {
     "blame", "reconstruct", "stale", "neighbors", "refresh", "improve-docs",
     "brief", "cache",
 }
-PORTED_COMMANDS = {"index", "search"}
+#: what the port serves; ``REFERENCE_COMMANDS - PORTED_COMMANDS`` is the one
+#: list of what still exits 2
+PORTED_COMMANDS = set(HANDLERS)
 _VALUE_FLAGS = {"--slot", "--path", "--device"}
 
 
@@ -55,18 +58,31 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = argparse.ArgumentParser(
         prog="cqs-tpu-torch", parents=[common],
-        description="Hybrid code search on PyTorch/CUDA (lexical tier).")
-    sub = p.add_subparsers(dest="command")
-    sp = sub.add_parser("index", parents=[common], help="build or update the index")
+        description="Hybrid code search on PyTorch/CUDA (lexical tier): index, "
+                    "search, call-graph reads and a warm query daemon.")
+    _orig_sub = p.add_subparsers(dest="command")
+
+    class _Sub:
+        """add_parser shim that threads the common flags into every
+        subcommand, so ``stats --json`` works flag-after-command."""
+
+        def add_parser(self, *a, **kw):
+            kw.setdefault("parents", [common])
+            return _orig_sub.add_parser(*a, **kw)
+
+    sub = _Sub()
+    sp = sub.add_parser("index", help="build or update the index")
     sp.add_argument("--force", action="store_true", help="reindex everything")
     sp.add_argument("--no-enrich", action="store_true",
                     help="skip the call-graph enrichment pass")
-    sp = sub.add_parser("search", parents=[common], help="search (also the bare default)")
+    sp = sub.add_parser("search", help="search (also the bare default)")
     sp.add_argument("query")
     sp.add_argument("-k", "--limit", type=int, default=10)
     sp.add_argument("--lang", help="language filter")
     sp.add_argument("--filter", dest="path_filter", help="path glob filter")
     sp.add_argument("--alpha", type=float, help="override fusion alpha")
+    sp.add_argument("--rerank", action="store_true",
+                    help="cross-encoder rerank (not yet ported: exits 2)")
     sp.add_argument("--body", action="store_true", help="include chunk bodies")
     sp.add_argument("--include-docs", action="store_true",
                     help="include section/module/config chunks")
@@ -75,6 +91,58 @@ def build_parser() -> argparse.ArgumentParser:
                     metavar="CHUNK_TYPE")
     sp.add_argument("--threshold", type=float, default=None,
                     help="cosine floor (score_threshold knob)")
+
+    sp = sub.add_parser("callers", help="who calls this function")
+    sp.add_argument("name")
+    sp = sub.add_parser("callees", help="what this function calls")
+    sp.add_argument("name")
+    sp = sub.add_parser("impact", help="transitive impact of changing a function")
+    sp.add_argument("name")
+    sp.add_argument("--depth", type=int, default=None)
+    sp.add_argument("--mermaid", action="store_true", help="render as a mermaid flowchart")
+    sp = sub.add_parser("trace", help="shortest call path between two functions")
+    sp.add_argument("src")
+    sp.add_argument("dst")
+    sp.add_argument("--mermaid", action="store_true", help="render as a mermaid flowchart")
+    sub.add_parser("dead", help="likely-dead code report")
+    sp = sub.add_parser("test-map", help="tests covering a function")
+    sp.add_argument("name")
+    sp = sub.add_parser("read", help="print a chunk by name or id")
+    sp.add_argument("name")
+    sp = sub.add_parser("similar", help="chunks similar to a given chunk")
+    sp.add_argument("name")
+    sp.add_argument("-k", "--limit", type=int, default=10)
+    sp = sub.add_parser("notes", help="list notes")
+    sp.add_argument("target", nargs="?")
+    sp = sub.add_parser("gather", help="assemble reading context for a topic")
+    sp.add_argument("query")
+    sp.add_argument("--depth", type=int, default=2)
+    sp.add_argument("-k", "--limit", type=int, default=20)
+    sp.add_argument("--direction", choices=["both", "callees", "callers"],
+                    default="both", help="call-graph expansion direction")
+    sp.add_argument("--seed-limit", type=int, default=None,
+                    help="max search hits seeding the walk (default limit/2)")
+    sp.add_argument("--seed-threshold", type=float, default=0.0,
+                    help="min seed score (0 = off)")
+    sp.add_argument("--decay", type=float, default=0.6, help="per-hop score decay factor")
+
+    sub.add_parser("stats", help="index statistics")
+    sp = sub.add_parser("status", help="index freshness status")
+    sp.add_argument("--watch", action="store_true", help="include daemon ops snapshot")
+    sp.add_argument("--wait", action="store_true",
+                    help="block until the daemon reports fresh")
+    sp.add_argument("--timeout", type=float, default=60.0)
+
+    sp = sub.add_parser("watch", help="watch daemon: incremental reindex + query server")
+    sp.add_argument("--serve", action="store_true", help="expose the query socket")
+    sp.add_argument("--once", action="store_true", help="one reconcile pass, then exit")
+    sub.add_parser("batch", help="JSONL request loop on stdin")
+    sub.add_parser("mcp", help="MCP stdio server")
+    sub.add_parser("ping", help="check whether a daemon is live")
+    sub.add_parser("refresh", help="ask a live daemon to reload its indexes")
+    sp = sub.add_parser("serve", help="local HTTP API + web UI")
+    sp.add_argument("--port", type=int, default=7777)
+    sp.add_argument("--host", default="127.0.0.1")
     return p
 
 
@@ -105,116 +173,47 @@ def main(argv: list[str] | None = None) -> int:
     if not args.command:
         build_parser().print_help()
         return 0
-    from cqs_tpu_torch.cli.context import CommandContext
+    try:
+        return dispatch(args)
+    except BrokenPipeError:
+        return 0
 
+
+def dispatch(args) -> int:
+    from cqs_tpu_torch.cli.context import CommandContext
+    from cqs_tpu_torch.daemon.client import FORWARDABLE, request, translate_args
+
+    handler = HANDLERS[args.command]
     ctx = CommandContext.create(args.path, args.slot, device=args.device)
     try:
-        return cmd_index(ctx, args) if args.command == "index" else cmd_search(ctx, args)
+        # read commands go to a live daemon first: its warm handles beat an
+        # in-process cold start; without one (or on an error answer) the
+        # command runs here
+        if args.command in FORWARDABLE:
+            resp = request(ctx.index_dir, args.command, translate_args(args.command, args))
+            if resp is not None and "error" not in resp:
+                if args.json:
+                    emit(envelope(args.command, resp.get("results"),
+                                  meta={"daemon": True,
+                                        "elapsed_ms": resp.get("elapsed_ms")}), True)
+                else:
+                    _render_forwarded(args.command, resp)
+                return 0
+        return handler(ctx, args)
     finally:
         ctx.close()
 
 
-def cmd_index(ctx, args) -> int:
-    from cqs_tpu_torch.store.lock import IndexLock, IndexLocked
-    from cqs_tpu_torch.pipeline import run_index_pipeline
-
-    try:
-        lock = IndexLock(ctx.index_dir).acquire()
-    except IndexLocked as e:
-        print(str(e))
-        return 1
-    last = [0.0]
-
-    def progress(stats):
-        if time.time() - last[0] > 2.0:
-            last[0] = time.time()
-            print(f"  ... {stats.files_parsed} files, {stats.chunks_upserted} chunks",
-                  file=sys.stderr)
-
-    try:
-        stats = run_index_pipeline(
-            ctx.root, ctx.store, ctx.embedder, ctx._maybe_splade(), config=ctx.config,
-            force=args.force, with_enrichment=not args.no_enrich, progress=progress)
-    finally:
-        lock.release()
-    _ = ctx.engine       # build + persist the device indexes so the first query is warm
-    if args.json:
-        emit(envelope("index", stats.as_dict()), True)
-    else:
-        print(f"indexed {stats.files_parsed} files ({stats.files_skipped} unchanged, "
-              f"{stats.files_removed} removed) -> {stats.chunks_upserted} chunks, "
-              f"{stats.embedded} embedded ({stats.embed_reused} reused), "
-              f"{stats.enriched} enriched, {stats.sparse_encoded} sparse "
-              f"in {stats.elapsed_s:.1f}s")
-    return 0
-
-
-def _parse_chunk_types(args):
-    """--type/--exclude-type -> an include list (None = code-only default);
-    the reference's rules (``cqs_tpu/cli/commands.py::_parse_chunk_types``).
-    Raises ValueError on an unknown type."""
-    from cqs_tpu_torch.parser.types import ChunkType
-
-    types, excl = args.types, args.exclude_types
-    if not types and not excl:
-        return None
-    valid = {t.value for t in ChunkType}
-    bad = [n for n in (types or []) + (excl or []) if n not in valid]
-    if bad:
-        raise ValueError(f"invalid chunk type {bad[0]!r}. Valid: {', '.join(sorted(valid))}")
-    if types:
-        include = [ChunkType(t) for t in types]
-    elif args.include_docs:
-        include = [t for t in ChunkType if t is not ChunkType.WINDOW]
-    else:
-        include = [t for t in ChunkType if t.is_code and t is not ChunkType.WINDOW]
-    drop = {ChunkType(t) for t in excl or []}
-    return [t for t in include if t not in drop]
-
-
-def cmd_search(ctx, args) -> int:
-    if not Path(ctx.index_dir).exists() or ctx.store.chunk_count() == 0:
-        msg = "no index found — run `python -m cqs_tpu_torch index` first"
-        if args.json:
-            emit(envelope("search", [], error=msg), True)
-        else:
-            print(msg)
-        return 2
-    try:
-        chunk_types = _parse_chunk_types(args)
-    except ValueError as e:
-        print(str(e), file=sys.stderr)
-        return 2
-    eng = ctx.engine
-    prior = os.environ.get("CQST_SCORE_THRESHOLD")
-    if args.threshold is not None:
-        os.environ["CQST_SCORE_THRESHOLD"] = str(args.threshold)
-    try:
-        res = eng.search(args.query, limit=args.limit, path_filter=args.path_filter,
-                         lang_filter=args.lang, alpha_override=args.alpha,
-                         chunk_types=chunk_types, include_docs=args.include_docs)
-    finally:
-        if args.threshold is not None:
-            if prior is None:
-                os.environ.pop("CQST_SCORE_THRESHOLD", None)
-            else:
-                os.environ["CQST_SCORE_THRESHOLD"] = prior
-    record_telemetry(ctx.index_dir, "search", args.query, len(res.hits))
-    if args.json:
-        emit(envelope("search", [h.to_dict(include_body=args.body) for h in res.hits],
-                      meta={**staleness_meta(ctx.store, ctx.root),
-                            "category": res.category, "strategy": res.strategy,
-                            "alpha": res.alpha, "elapsed_ms": round(res.elapsed_ms, 2),
-                            "device": str(ctx.device)}), True)
-        return 0
-    print(f"# {res.category} / {res.strategy} / alpha={res.alpha:.2f} "
-          f"({res.elapsed_ms:.0f} ms, {ctx.device})")
-    for h in res.hits:
-        print(f"{h.score:6.3f}  {h.row.origin}:{h.row.line_start}  "
-              f"{h.row.qualified_name}  [{h.row.chunk_type}]")
-        if args.body:
-            for line in h.row.body.splitlines()[:20]:
-                print(f"        {line}")
-    if not res.hits:
-        print("(no results)")
-    return 0
+def _render_forwarded(command: str, resp: dict) -> None:
+    """Human rendering for daemon-forwarded responses."""
+    results = resp.get("results")
+    if command == "search" and isinstance(results, list):
+        for h in results:
+            print(f"{h.get('score', 0):6.3f}  {h.get('origin')}:{h.get('line_start')}  "
+                  f"{h.get('name')}  [{h.get('chunk_type')}]")
+        if not results:
+            print("(no results)")
+        print(f"# daemon {resp.get('elapsed_ms')} ms", file=sys.stderr)
+        return
+    json.dump(results, sys.stdout, indent=1)
+    sys.stdout.write("\n")

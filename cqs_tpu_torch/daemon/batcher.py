@@ -1,7 +1,7 @@
 """Query micro-batching: fuse concurrent searches into one device program.
 
-Port of ``cqs_tpu/daemon/batcher.py`` (the socket server and dispatch are
-not ported yet). Concurrent default searches (no filters) collect for up to
+Port of ``cqs_tpu/daemon/batcher.py``; ``daemon/dispatch.py`` feeds it from
+the socket server's client threads. Concurrent default searches (no filters) collect for up to
 ``daemon_batch_window_ms`` or ``daemon_max_batch`` entries, embed as one
 batch and run ONE device program on the engine's device
 (``hybrid_query_batch``, or the engine's int8 program when ``scan_q8``
@@ -31,6 +31,10 @@ from cqs_tpu_torch.search.engine import SearchEngine, SearchHit, SearchResult, b
 from cqs_tpu_torch.search.program import hybrid_query_batch, trim_query_terms
 
 log = get_tracer("batcher")
+
+#: a batch is padded to the first rung that holds it, so every batch size a
+#: device program is launched with is one of these (or larger than the last)
+BATCH_RUNGS = (1, 4, 8, 16, 32, 64, 128)
 
 
 @dataclass
@@ -184,7 +188,65 @@ class QueryBatcher:
             self._run_group(group, index)
 
     def _run_group(self, batchable: list, index) -> None:
+        eng = self.engine
         t0 = time.perf_counter()
+        # the engine's index lock: one batch reads one consistent set of index
+        # tensors, whatever a refresh does meanwhile (search/engine.py). It is
+        # held for the device part only; hydration runs outside it. A rebuild
+        # that swapped the indexes since the group was formed leaves ``index``
+        # behind: those queries go the solo way, on the new indexes
+        with eng.index_lock:
+            current = (index is eng.dense or index is eng.dense_base) and (
+                eng.sparse is not None and eng.sparse.capacity == index.capacity
+                and eng.sparse.ids_digest == index.ids_digest)
+            generation = eng.index_generation
+            if current:
+                q_dense, legs, fused, rows, d_leg, s_leg = self._device_batch(batchable, index)
+        if not current:
+            self.stats["solo"] += len(batchable)
+            for p, _, _ in batchable:
+                try:
+                    p.future.set_result(eng.search(p.query, limit=p.limit))
+                except Exception as e:
+                    p.future.set_exception(e)
+            return
+        B = len(batchable)
+        device_ms = (time.perf_counter() - t0) * 1e3
+
+        # hydration/boosting fans out on host threads: one device program
+        # serves the whole window, so hydrating query after query (SQLite
+        # and scoring for each) would dominate the window's latency
+        def finish(item):
+            i, (p, cls, alpha) = item
+            try:
+                hits = self._hydrate(p, cls, index, fused[i], rows[i],
+                                     d_leg[i], s_leg[i], q_dense[i], legs[i])
+                res = SearchResult(
+                    hits[: p.limit], cls.category.value, cls.strategy.value + "+batched",
+                    alpha, (time.perf_counter() - t0) * 1e3,
+                    {"batch_size": B, "device_ms": round(device_ms, 2)})
+                if generation == eng.index_generation:      # no refresh meanwhile
+                    eng._cache_result(eng.result_cache_key(p.query, p.limit), res)
+                p.future.set_result(res)
+            except Exception as e:
+                p.future.set_exception(e)
+
+        if B > 2:
+            from concurrent.futures import ThreadPoolExecutor
+
+            if not hasattr(self, "_hydrate_pool"):
+                self._hydrate_pool = ThreadPoolExecutor(max_workers=4,
+                                                        thread_name_prefix="cqst-hydrate")
+            list(self._hydrate_pool.map(finish, enumerate(batchable)))
+        else:
+            for item in enumerate(batchable):
+                finish(item)
+
+    def _device_batch(self, batchable: list, index):
+        """The device part of one group, under the caller's index lock:
+        embed, start the FTS legs, run ONE device program for the padded
+        batch. Returns (q_dense, legs, fused, rows, dense leg, sparse leg),
+        the last four as host arrays of the B real queries."""
         eng = self.engine
         B = len(batchable)
         self.stats["batches"] += 1
@@ -203,7 +265,7 @@ class QueryBatcher:
 
         # pad the batch dim to a rung so the number of distinct batch shapes
         # stays small (padding rows repeat the first query)
-        Bp = next((r for r in (1, 4, 8, 16, 32, 64, 128) if B <= r), B)
+        Bp = next((r for r in BATCH_RUNGS if B <= r), B)
         if Bp != B:
             q_dense = np.concatenate([q_dense, np.repeat(q_dense[:1], Bp - B, 0)])
             q_ids_b = np.concatenate([q_ids_b, np.repeat(q_ids_b[:1], Bp - B, 0)])
@@ -229,37 +291,8 @@ class QueryBatcher:
                 sketch_candidates=eng._sketch_candidates(None),
                 extraction=bf16_extraction(index.capacity, B, eng.lim.scan_extraction,
                                            eng.lim.scan_q8_min_rows))
-        fused, rows = fused[:B].cpu().numpy(), rows[:B].cpu().numpy()
-        d_leg, s_leg = d_leg[:B].cpu().numpy(), s_leg[:B].cpu().numpy()
-        device_ms = (time.perf_counter() - t0) * 1e3
-
-        # hydration/boosting fans out on host threads: the device part of a
-        # window is sub-ms on TPU, so serial per-query hydrate (~10-30 ms of
-        # SQLite + scoring each) would dominate the window latency
-        def finish(item):
-            i, (p, cls, alpha) = item
-            try:
-                hits = self._hydrate(p, cls, index, fused[i], rows[i],
-                                     d_leg[i], s_leg[i], q_dense[i], legs[i])
-                res = SearchResult(
-                    hits[: p.limit], cls.category.value, cls.strategy.value + "+batched",
-                    alpha, (time.perf_counter() - t0) * 1e3,
-                    {"batch_size": B, "device_ms": round(device_ms, 2)})
-                eng._cache_result(eng.result_cache_key(p.query, p.limit), res)
-                p.future.set_result(res)
-            except Exception as e:
-                p.future.set_exception(e)
-
-        if B > 2:
-            from concurrent.futures import ThreadPoolExecutor
-
-            if not hasattr(self, "_hydrate_pool"):
-                self._hydrate_pool = ThreadPoolExecutor(max_workers=4,
-                                                        thread_name_prefix="cqst-hydrate")
-            list(self._hydrate_pool.map(finish, enumerate(batchable)))
-        else:
-            for item in enumerate(batchable):
-                finish(item)
+        return (q_dense, legs, fused[:B].cpu().numpy(), rows[:B].cpu().numpy(),
+                d_leg[:B].cpu().numpy(), s_leg[:B].cpu().numpy())
 
     def _hydrate(self, p: _Pending, cls, index, fused, rows, d_leg, s_leg,
                  q_vec, legs) -> list[SearchHit]:

@@ -155,18 +155,23 @@ class DenseIndex:
 
     @property
     def ids_digest(self) -> str:
-        """Digest of the id list: equal digests mean row-aligned indexes."""
-        if self._ids_digest is None:
-            self._ids_digest = hashlib.blake2b(
-                "|".join(self.ids).encode(), digest_size=16).hexdigest()
-        return self._ids_digest
+        """Digest of the id list: equal digests mean row-aligned indexes.
+        Computed under the mutation lock: a reader on another thread never
+        caches the digest of a half-mutated list."""
+        with self._lock:
+            if self._ids_digest is None:
+                self._ids_digest = hashlib.blake2b(
+                    "|".join(self.ids).encode(), digest_size=16).hexdigest()
+            return self._ids_digest
 
     @property
     def row_of(self) -> dict[str, int]:
-        """id -> row for this index's numbering (cached)."""
-        if self._row_map is None:
-            self._row_map = {cid: i for i, cid in enumerate(self.ids) if cid}
-        return self._row_map
+        """id -> row for this index's numbering (cached, under the mutation
+        lock as :attr:`ids_digest`)."""
+        with self._lock:
+            if self._row_map is None:
+                self._row_map = {cid: i for i, cid in enumerate(self.ids) if cid}
+            return self._row_map
 
     def _invalidate_id_caches(self) -> None:
         self._ids_digest = None

@@ -121,10 +121,13 @@ class SpladeIndex:
 
     @property
     def ids_digest(self) -> str:
-        if self._ids_digest is None:
-            self._ids_digest = hashlib.blake2b(
-                "|".join(self.ids).encode(), digest_size=16).hexdigest()
-        return self._ids_digest
+        """Digest of the id list, computed under the mutation lock: a reader
+        on another thread never caches the digest of a half-mutated list."""
+        with self._lock:
+            if self._ids_digest is None:
+                self._ids_digest = hashlib.blake2b(
+                    "|".join(self.ids).encode(), digest_size=16).hexdigest()
+            return self._ids_digest
 
     def append(self, new_ids: list[str], doc_ids: np.ndarray, doc_w: np.ndarray) -> None:
         """Insert into padding headroom (slice copy into new tensors, then

@@ -80,21 +80,26 @@ class Embedder:
         with self._lock:
             self._table = table.to(self.device, torch.float32)
 
-    def _ensure_model(self) -> None:
-        if self._table is not None:
-            return
+    def _ensure_model(self) -> torch.Tensor:
+        """The device-resident table, built from the seed when absent (first
+        use, or the first use after :meth:`clear_session`)."""
+        table = self._table
+        if table is not None:
+            return table
         with self._lock:
-            if self._table is not None:
-                return
-            raw = normal_table(self._seed, self.tokenizer.vocab_size, self.preset.dim)
-            table = torch.from_numpy(np.array(raw)).to(self.device)
-            self._table = table / torch.linalg.vector_norm(table, dim=-1, keepdim=True)
+            if self._table is None:
+                raw = normal_table(self._seed, self.tokenizer.vocab_size, self.preset.dim)
+                table = torch.from_numpy(np.array(raw)).to(self.device)
+                self._table = table / torch.linalg.vector_norm(table, dim=-1, keepdim=True)
+            return self._table
 
     def _forward(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
-        self._ensure_model()
+        # one read of the table: a concurrent clear_session cannot pull it
+        # from under a forward pass that has started
+        table = self._ensure_model()
         ids_t = torch.from_numpy(ids).to(self.device, torch.int64)
         m = torch.from_numpy(mask).to(self.device, torch.float32)[..., None]
-        vecs = self._table[ids_t]                                   # [B, L, D]
+        vecs = table[ids_t]                                         # [B, L, D]
         pooled = (vecs * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
         norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
         return (pooled / torch.clamp(norm, min=1e-12)).cpu().numpy()
@@ -184,3 +189,27 @@ class Embedder:
 
     def token_count(self, text: str) -> int:
         return self.tokenizer.token_count(text)
+
+    # -- daemon lifecycle ----------------------------------------------------
+
+    def warm(self) -> None:
+        """Embed one short text on the engine's device, so the table is
+        resident (and, on a GPU, the gather/mean kernels are loaded) before
+        the first real query (``embedder.py:390``)."""
+        self._embed(["warmup"], "")
+
+    def clear_session(self) -> None:
+        """Drop the device-resident state (``embedder.py:395``; the daemon's
+        idle unload). What is freed: the ``[vocab, dim]`` f32 table, the
+        embedder's only tensor (32768 x 256 x 4 bytes on the hash tier). On a
+        GPU its block also goes back from PyTorch's caching allocator to CUDA
+        (``torch.cuda.empty_cache``), so other processes on the card
+        can have the memory. A forward pass already running keeps its own
+        reference until it returns. The next query rebuilds the table from
+        the seed; a table installed with :meth:`load_params` is not kept.
+        The host-side query LRU stays: its vectors do not depend on the
+        table being resident."""
+        with self._lock:
+            self._table = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()

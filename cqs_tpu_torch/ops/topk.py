@@ -431,6 +431,24 @@ IMPLS = (LOOP_SPLIT, LOOP_CC, GROUPED, LOOP_SPLIT_I8, LOOP_I8_CC, GROUPED_I8, LO
 _BY_KIND = {(k.kind, k.grouped): k for k in KERNELS}
 
 
+def scan_tiles(index: torch.Tensor, queries: torch.Tensor, mask: torch.Tensor,
+               tile_n: int, m: int, grouped: bool):
+    """Stage 1 of :func:`scan_topk`: each tile's m candidates, (vals, rows)
+    of shape [tiles, B, m]. On a CUDA tensor the hand-written kernel of the
+    (rows, query) pair is launched, and a pair with no kernel raises; on a
+    CPU tensor the plain twin runs."""
+    if index.is_cuda:
+        kernel = _BY_KIND.get((ROW_KINDS.get((index.dtype, queries.dtype)), grouped))
+        if kernel is None:
+            raise TypeError(f"no scan kernel for {index.dtype} rows and a "
+                            f"{queries.dtype} query")
+        return kernel(index, queries.contiguous(), mask.to(torch.int32).contiguous(),
+                      tile_n, m)
+    if grouped:
+        return scan_topk_plain_grouped(index, queries, mask, tile_n, m)
+    return scan_topk_plain_loop(index, queries, mask, tile_n, m)
+
+
 def scan_topk(index: torch.Tensor, queries: torch.Tensor, k: int,
               mask: torch.Tensor | None = None, tile_n: int = 2048,
               per_tile_k: int | None = None, extraction: str = "loop"):
@@ -450,15 +468,5 @@ def scan_topk(index: torch.Tensor, queries: torch.Tensor, k: int,
     if mask is None:
         mask = torch.ones(n, dtype=torch.int32, device=index.device)
     queries = scan_query(index, queries)
-    if index.is_cuda:
-        kernel = _BY_KIND.get((ROW_KINDS.get((index.dtype, queries.dtype)), grouped))
-        if kernel is None:
-            raise TypeError(f"no scan kernel for {index.dtype} rows and a "
-                            f"{queries.dtype} query")
-        vals, rows = kernel(index, queries.contiguous(), mask.to(torch.int32).contiguous(),
-                            tile_n, m)
-    elif grouped:
-        vals, rows = scan_topk_plain_grouped(index, queries, mask, tile_n, m)
-    else:
-        vals, rows = scan_topk_plain_loop(index, queries, mask, tile_n, m)
+    vals, rows = scan_tiles(index, queries, mask, tile_n, m, grouped)
     return merge_tiles(vals, rows, k)

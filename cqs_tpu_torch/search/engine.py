@@ -12,13 +12,29 @@ programs (knob ``scan_q8``: 1 = q8, 2 = sk8) and the screened B=1 program
 TPU-backend gates have no counterpart: on every device the same device
 program runs, on the CPU with the plain scans.
 
+Index swaps and threads: a warm daemon searches (client threads, the
+micro-batcher's thread) while the watch loop refreshes the indexes. Every
+index mutation builds new tensors and rebinds them, so a program that was
+launched keeps the tensors it was given alive until it ends (on a GPU all
+threads enqueue on the one default stream, so the allocator cannot hand a
+released block to later work before the earlier kernels are done with it).
+``index_lock`` makes the set of tensors one program reads consistent: the
+refresh holds it while it mutates or swaps the dense, base and sparse
+indexes, and a query holds it from picking its index until its program's
+results are on the host. ``refresh_lock`` serializes the refreshes themselves
+(``refresh_incremental`` from the watch loop, ``load_or_build_indexes`` from
+the ``refresh`` and ``index`` handlers' threads): each holds it from reading
+the serving indexes' ids to binding the result, so a delta is never applied
+to indexes another refresh swapped in meanwhile. It is taken before
+``index_lock``, never inside it, and no query takes it.
+
 Not on this slice (they raise or are absent): the worktree overlay, the
-ANN/graph tiers, mesh sharding, rerank, tiered serving and
-``refresh_incremental``.
+ANN/graph tiers, mesh sharding, rerank and tiered serving.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -163,6 +179,14 @@ class SearchEngine:
         self.dense: DenseIndex | None = None
         self.dense_base: DenseIndex | None = None
         self.sparse: SpladeIndex | None = None
+        #: held by a refresh while it mutates or swaps the indexes, and by a
+        #: query from its index pick to its program's results (module docstring)
+        self.index_lock = threading.RLock()
+        #: held by a refresh or rebuild from start to end: one at a time
+        self.refresh_lock = threading.RLock()
+        #: bumped (under ``index_lock``) by every index mutation or swap; a
+        #: result computed on an earlier generation is not cached
+        self.index_generation = 0
         self._code_masks: dict = {}  # (index id, digest[, "device"]) -> (token, mask)
         # slot-local centroids win; otherwise the packaged artifact, gated on
         # an exact embedder-fingerprint match
@@ -191,14 +215,21 @@ class SearchEngine:
 
     def load_or_build_indexes(self, build_base: bool = True) -> None:
         """Load persisted artifacts when stamps match the live store;
-        otherwise rebuild from the store's embeddings."""
-        with span("load_or_build_indexes"):
-            self.dense = self._load_or_build_dense(DENSE_FILE, base=False)
+        otherwise rebuild from the store's embeddings. The new indexes are
+        built beside the serving ones and swapped in together under
+        ``index_lock``; ``refresh_lock`` keeps other refreshes out."""
+        with self.refresh_lock, span("load_or_build_indexes"):
+            dense = self._load_or_build_dense(DENSE_FILE, base=False)
+            base, sparse = self.dense_base, self.sparse
             if build_base and not self.lim.disable_base_index:
-                self.dense_base = self._load_or_build_dense(DENSE_BASE_FILE, base=True)
+                base = self._load_or_build_dense(DENSE_BASE_FILE, base=True)
             if self.splade is not None and not self.lim.disable_splade:
-                self.sparse = self._load_or_build_sparse()
-            self._row_of = self.dense.row_of if self.dense else {}
+                sparse = self._load_or_build_sparse(dense)
+            with self.index_lock:
+                self.dense, self.dense_base, self.sparse = dense, base, sparse
+                self._row_of = dense.row_of if dense else {}
+                self._result_cache = {}
+                self.index_generation += 1
             # pre-warm the host lexical index off-thread (lexical tier only)
             if self.embedder.preset.lexical_tier and self.lim.host_lexical:
                 self._legs_pool.submit(self._get_host_lex)
@@ -222,13 +253,15 @@ class SearchEngine:
             idx.save(path)
         return idx
 
-    def _load_or_build_sparse(self) -> SpladeIndex | None:
+    def _load_or_build_sparse(self, dense: DenseIndex | None) -> SpladeIndex | None:
+        """The sparse index, row-aligned with ``dense`` (the dense index
+        it will serve beside)."""
         expect = self._expected_stamp("splade")
         path = self.slot_dir / SPLADE_FILE
         if path.exists():
             try:
                 idx = SpladeIndex.load(path, expect=expect, device=self.device)
-                if self.dense is None or idx.ids_digest == self.dense.ids_digest:
+                if dense is None or idx.ids_digest == dense.ids_digest:
                     return idx
                 log.info("splade index id-misaligned with dense; rebuilding")
             except (StampMismatch, OSError, ValueError, KeyError) as e:
@@ -238,7 +271,7 @@ class SearchEngine:
             return None
         # build in the dense index's row order so rows align by construction
         by_id = {r[0]: r for r in rows}
-        order = self.dense.ids if self.dense is not None else [r[0] for r in rows]
+        order = dense.ids if dense is not None else [r[0] for r in rows]
         T = self.lim.splade_doc_terms
         doc_ids = np.zeros((len(order), T), np.int32)
         doc_w = np.zeros((len(order), T), np.float32)
@@ -256,7 +289,105 @@ class SearchEngine:
         return idx
 
     def refresh_incremental(self) -> dict:
-        raise NotImplementedError("refresh_incremental is not yet ported (ROADMAP)")
+        """Reconcile the device indexes against the store without a full
+        rebuild when the delta is small (``engine.py:467``): new chunk ids
+        append into padding headroom, vanished ids are tombstoned. Past
+        ``rebuild_threshold`` changes, or when dense and sparse end up
+        misaligned, the indexes are rebuilt from the store.
+
+        On the device an append copies the old tensors there and uploads only
+        the new rows (``DenseIndex.append``, ``SpladeIndex.append``); every
+        mutation rebinds new tensors, which is what the identity-keyed caches
+        (``dense_i8``, ``sketch_i8``, ``sketch_mini``, ``packed_terms``, the
+        device code mask) watch, and the id digests the host code mask is
+        keyed on change with the id lists. The result cache is dropped: the
+        store's token moved when the store was written, before this refresh,
+        and results computed in between came from the old rows; a query
+        still in flight sees ``index_generation`` move and does not cache its
+        result. The whole refresh runs under ``refresh_lock``, so the delta
+        is worked out on the indexes it is applied to; the mutations run
+        under ``index_lock`` (module docstring)."""
+        with self.refresh_lock:
+            return self._refresh_incremental()
+
+    def _refresh_incremental(self) -> dict:
+        if self.dense is None:
+            self.load_or_build_indexes()
+            return {"rebuilt": True}
+        db = self.store._read_db()
+        store_ids = [cid for cid, in db.execute(
+            "SELECT id FROM chunks WHERE embedding IS NOT NULL ORDER BY rowid")]
+        store_set = set(store_ids)
+        index_set = {cid for cid in self.dense.ids if cid}
+        new_ids = [cid for cid in store_ids if cid not in index_set]
+        gone = index_set - store_set
+        n_changes = len(new_ids) + len(gone)
+        if n_changes == 0:
+            return {"unchanged": True}
+        if n_changes > self.lim.rebuild_threshold:
+            self.load_or_build_indexes()
+            return {"rebuilt": True, "changes": n_changes}
+
+        def blob_map(sql: str, ids: list[str]) -> dict[str, tuple]:
+            out = {}
+            for i in range(0, len(ids), 500):      # sqlite parameter cap headroom
+                batch = ids[i:i + 500]
+                q = ",".join("?" * len(batch))
+                for cid, *blobs in db.execute(sql.format(q=q), batch):
+                    if blobs[0]:
+                        out[cid] = tuple(blobs)
+            return out
+
+        # read the store first, mutate after: the lock is held for the device
+        # copies only
+        vec_map = blob_map("SELECT id, embedding FROM chunks WHERE id IN ({q})", new_ids)
+        ordered = [cid for cid in new_ids if cid in vec_map]
+        base_map = (blob_map("SELECT id, embedding_base FROM chunks WHERE id IN ({q})", ordered)
+                    if ordered and self.dense_base is not None else {})
+        sp_rows = (blob_map("SELECT chunk_id, token_ids, weights FROM sparse_vectors "
+                            "WHERE chunk_id IN ({q})", ordered)
+                   if ordered and self.sparse is not None else {})
+        with self.index_lock:
+            if gone:
+                self.dense.remove(gone)
+                if self.dense_base is not None:
+                    self.dense_base.remove(gone)
+                if self.sparse is not None:
+                    self.sparse.remove(gone)
+            if ordered:
+                self.dense.append(ordered, np.stack(
+                    [np.frombuffer(vec_map[c][0], dtype="<f4") for c in ordered]))
+                # the base index numbers its rows on its own: keep it
+                # reconciled too, or filtered base queries mask the wrong rows
+                base_ids = [cid for cid in ordered if cid in base_map]
+                if base_ids:
+                    self.dense_base.append(base_ids, np.stack(
+                        [np.frombuffer(base_map[c][0], dtype="<f4") for c in base_ids]))
+                if self.sparse is not None:
+                    T = self.sparse.T
+                    sp_ids = np.zeros((len(ordered), T), np.int32)
+                    sp_w = np.zeros((len(ordered), T), np.float32)
+                    for i, cid in enumerate(ordered):
+                        r = sp_rows.get(cid)
+                        if r:
+                            t = np.frombuffer(r[0], dtype="<i4")[:T]
+                            w = np.frombuffer(r[1], dtype="<f4")[:T]
+                            sp_ids[i, : len(t)] = t
+                            sp_w[i, : len(w)] = w
+                    self.sparse.append(ordered, sp_ids, sp_w)
+            # alignment guard: the row-aligned hybrid path needs identical id
+            # lists, not just equal counts; verify by digest
+            aligned = self.sparse is None or (
+                self.sparse.capacity == self.dense.capacity
+                and self.sparse.ids_digest == self.dense.ids_digest)
+            self.index_generation += 1
+            if aligned:
+                self._row_of = self.dense.row_of
+                self._result_cache = {}
+        if not aligned:
+            self.load_or_build_indexes()
+            return {"rebuilt": True, "reason": "alignment"}
+        return {"appended": len(new_ids), "tombstoned": len(gone)}
 
     # -- filters -----------------------------------------------------------
 
@@ -327,21 +458,23 @@ class SearchEngine:
         alpha = (alpha_override if alpha_override is not None
                  else resolve_alpha(cls, overrides, self.lim))
 
-        index = self._pick_dense_index(cls)
-        if index is None or index.count == 0:
-            return SearchResult([], cls.category.value, cls.strategy.value, alpha,
-                                (time.perf_counter() - t0) * 1e3, {"empty_index": True})
+        with self.index_lock:
+            generation = self.index_generation
+            index = self._pick_dense_index(cls)
+            if index is None or index.count == 0:
+                return SearchResult([], cls.category.value, cls.strategy.value, alpha,
+                                    (time.perf_counter() - t0) * 1e3, {"empty_index": True})
 
-        pool = min(max(limit * self.lim.candidate_pool_mult, self.lim.candidate_pool_floor),
-                   index.capacity)
-        fmask = self._filter_mask(index, path_filter, lang_filter, chunk_types)
-        legs_future, full_rrf = self._start_legs(query, cls)
+            pool = min(max(limit * self.lim.candidate_pool_mult,
+                           self.lim.candidate_pool_floor), index.capacity)
+            fmask = self._filter_mask(index, path_filter, lang_filter, chunk_types)
+            legs_future, full_rrf = self._start_legs(query, cls)
 
-        t_dev = time.perf_counter()
-        with span("device_query", pool=pool, n=index.count):
-            fused, rows, d_leg, s_leg = self._device_query(index, q_vec, query, alpha,
-                                                           pool, fmask, code_only=code_only)
-        meta["device_ms"] = (time.perf_counter() - t_dev) * 1e3
+            t_dev = time.perf_counter()
+            with span("device_query", pool=pool, n=index.count):
+                fused, rows, d_leg, s_leg = self._device_query(index, q_vec, query, alpha,
+                                                               pool, fmask, code_only=code_only)
+            meta["device_ms"] = (time.perf_counter() - t_dev) * 1e3
 
         # hydrate + host scoring; the cosine-threshold drop is one vectorized
         # mask here, so dropped rows never pay hydration
@@ -385,7 +518,8 @@ class SearchEngine:
         meta["centroid_rerouted"] = cls.rerouted_by_centroid
         res = SearchResult(hits, cls.category.value, cls.strategy.value, alpha,
                            (time.perf_counter() - t0) * 1e3, meta)
-        self._cache_result(rkey, res)
+        if generation == self.index_generation:
+            self._cache_result(rkey, res)
         return res
 
     def _device_query(self, index: DenseIndex, q_vec: np.ndarray, query: str,
@@ -633,7 +767,7 @@ class SearchEngine:
         mask = np.ones(index.count, dtype=np.int32)
         row_of = index.row_of
         hit = 0
-        for (cid,) in self.store.db.execute(
+        for (cid,) in self.store._read_db().execute(
                 "SELECT c.id FROM chunks c "
                 "LEFT JOIN chunks p ON c.parent_id = p.id "
                 f"WHERE COALESCE(p.chunk_type, c.chunk_type) IN ({q})",
@@ -673,7 +807,7 @@ class SearchEngine:
                "ON c.parent_id = p.id WHERE " + " AND ".join(where))
         row_of = index.row_of
         mask = np.zeros(index.count, dtype=np.int32)
-        for (cid,) in self.store.db.execute(sql, params):
+        for (cid,) in self.store._read_db().execute(sql, params):
             r = row_of.get(cid)
             if r is not None:
                 mask[r] = 1

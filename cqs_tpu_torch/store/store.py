@@ -145,17 +145,27 @@ class Store:
         return cls(p, readonly=readonly)
 
     def _read_db(self) -> sqlite3.Connection:
-        """The connection to READ from in the calling thread."""
+        """The connection to READ from in the calling thread: the home
+        connection on the thread that opened the store, else that thread's
+        own read-only connection (WAL gives it the last committed snapshot).
+        A worker thread is never handed the home connection: two threads that
+        run the same SQL text on one connection share its cached prepared
+        statement, and one thread's step takes the other's row. The open is
+        retried; when it still fails, the error is raised."""
         if threading.get_ident() == self._home_thread:
             return self.db
         conn = getattr(self._tlocal, "conn", None)
         if conn is None:
-            try:
-                conn = sqlite3.connect(f"file:{self.path}?mode=ro", uri=True,
-                                       timeout=30.0)
-                conn.execute("PRAGMA mmap_size=268435456")
-            except sqlite3.OperationalError:
-                conn = self.db       # last resort: shared (pre-fix behavior)
+            for attempt in range(3):
+                try:
+                    conn = sqlite3.connect(f"file:{self.path}?mode=ro", uri=True,
+                                           timeout=30.0)
+                    conn.execute("PRAGMA mmap_size=268435456")
+                    break
+                except sqlite3.OperationalError:
+                    if attempt == 2:
+                        raise
+                    time.sleep(0.05 * (attempt + 1))
             self._tlocal.conn = conn
         return conn
 
@@ -272,7 +282,7 @@ class Store:
         return tok
 
     def chunk_count(self) -> int:
-        return self.db.execute("SELECT COUNT(*) FROM chunks").fetchone()[0]
+        return self._read_db().execute("SELECT COUNT(*) FROM chunks").fetchone()[0]
 
     # -- chunk CRUD --------------------------------------------------------
 
@@ -421,11 +431,11 @@ class Store:
 
     def find_by_name(self, name: str, exact: bool = True) -> list[ChunkRow]:
         if exact:
-            rows = self.db.execute(
+            rows = self._read_db().execute(
                 f"SELECT {_CHUNK_COLS} FROM chunks WHERE name = ? ORDER BY origin, line_start",
                 (name,)).fetchall()
         else:
-            rows = self.db.execute(
+            rows = self._read_db().execute(
                 f"SELECT {_CHUNK_COLS} FROM chunks WHERE name LIKE ? ORDER BY origin, line_start",
                 (f"%{name}%",)).fetchall()
         return [_row_to_chunk(r) for r in rows]
@@ -435,11 +445,11 @@ class Store:
         if where:
             sql += f" WHERE {where}"
         sql += " ORDER BY rowid"
-        for r in self.db.execute(sql, params):
+        for r in self._read_db().execute(sql, params):
             yield _row_to_chunk(r)
 
     def all_origins(self) -> list[str]:
-        return [r[0] for r in self.db.execute("SELECT DISTINCT origin FROM chunks ORDER BY origin")]
+        return [r[0] for r in self._read_db().execute("SELECT DISTINCT origin FROM chunks ORDER BY origin")]
 
     # -- embeddings --------------------------------------------------------
 
@@ -448,7 +458,7 @@ class Store:
         sql = "SELECT id, nl, nl_base FROM chunks WHERE needs_embedding = 1 ORDER BY rowid"
         if limit:
             sql += f" LIMIT {int(limit)}"
-        return list(self.db.execute(sql))
+        return list(self._read_db().execute(sql))
 
     def put_embeddings(self, ids: Sequence[str], vecs: np.ndarray,
                        vecs_base: np.ndarray | None = None) -> None:
@@ -466,7 +476,7 @@ class Store:
         col = "embedding_base" if base else "embedding"
         ids: list[str] = []
         vecs: list[np.ndarray] = []
-        for cid, blob in self.db.execute(
+        for cid, blob in self._read_db().execute(
                 f"SELECT id, {col} FROM chunks WHERE {col} IS NOT NULL ORDER BY rowid"):
             ids.append(cid)
             vecs.append(_from_blob(blob))
@@ -477,7 +487,7 @@ class Store:
     def get_embedding_by_canonical(self, canonical: str) -> np.ndarray | None:
         """Canonical-hash embedding reuse: a formatting-only edit produces a
         new chunk id but the same canonical hash (ref: schema v28 reuse)."""
-        r = self.db.execute(
+        r = self._read_db().execute(
             "SELECT embedding FROM chunks WHERE canonical_hash = ? AND embedding IS NOT NULL "
             "LIMIT 1", (canonical,)).fetchone()
         return _from_blob(r[0]) if r else None
@@ -502,14 +512,14 @@ class Store:
 
     def load_sparse(self) -> list[tuple[str, np.ndarray, np.ndarray]]:
         out = []
-        for cid, tb, wb in self.db.execute(
+        for cid, tb, wb in self._read_db().execute(
                 "SELECT sv.chunk_id, sv.token_ids, sv.weights FROM sparse_vectors sv "
                 "JOIN chunks c ON c.id = sv.chunk_id ORDER BY c.rowid"):
             out.append((cid, np.frombuffer(tb, dtype="<i4"), _from_blob(wb)))
         return out
 
     def missing_sparse(self) -> list[tuple[str, str]]:
-        return list(self.db.execute(
+        return list(self._read_db().execute(
             "SELECT c.id, c.nl FROM chunks c LEFT JOIN sparse_vectors sv "
             "ON sv.chunk_id = c.id WHERE sv.chunk_id IS NULL ORDER BY c.rowid"))
 
@@ -705,7 +715,7 @@ class Store:
             return []
         match = " AND ".join(f'"{t}"' for t in terms)
         try:
-            rows = self.db.execute(
+            rows = self._read_db().execute(
                 "SELECT id FROM chunks_fts WHERE name_norm MATCH ? "
                 "ORDER BY bm25(chunks_fts) LIMIT ?", (match, limit * 4)).fetchall()
         except sqlite3.OperationalError:
@@ -719,7 +729,7 @@ class Store:
     # -- file registry / staleness ----------------------------------------
 
     def get_fingerprint(self, origin: str) -> Fingerprint | None:
-        r = self.db.execute(
+        r = self._read_db().execute(
             "SELECT mtime_ns, size, digest FROM file_registry WHERE origin = ?",
             (origin,)).fetchone()
         return Fingerprint(mtime_ns=r[0], size=r[1], digest=r[2]) if r else None
@@ -736,7 +746,7 @@ class Store:
 
     def registered_origins(self) -> dict[str, Fingerprint]:
         return {r[0]: Fingerprint(mtime_ns=r[1], size=r[2], digest=r[3])
-                for r in self.db.execute(
+                for r in self._read_db().execute(
                     "SELECT origin, mtime_ns, size, digest FROM file_registry")}
 
     def remove_origin(self, origin: str) -> None:
@@ -749,7 +759,7 @@ class Store:
 
     def stale_parser_origins(self) -> list[str]:
         """Origins indexed with an older parser version (drift requeue)."""
-        return [r[0] for r in self.db.execute(
+        return [r[0] for r in self._read_db().execute(
             "SELECT origin FROM file_registry WHERE parser_version < ? AND fail_count < 3",
             (PARSER_VERSION,))]
 
@@ -761,14 +771,14 @@ class Store:
         high-fanout symbol has thousands of callers — dragging body/nl for
         each measured 26 ms/call at 3k callers on the 31k bench corpus
         (9 ms meta-only)."""
-        rows = self.db.execute(
+        rows = self._read_db().execute(
             f"SELECT {_CHUNK_META_COLS}, fc.line, fc.kind FROM function_calls fc "
             "JOIN chunks ON chunks.id = fc.caller_id WHERE fc.callee_name = ? "
             "ORDER BY chunks.origin, chunks.line_start", (name,)).fetchall()
         return [(_row_to_chunk(r[:17]), r[17], r[18]) for r in rows]
 
     def callees_of(self, chunk_id: str) -> list[tuple[str, int, str]]:
-        return list(self.db.execute(
+        return list(self._read_db().execute(
             "SELECT callee_name, line, kind FROM function_calls WHERE caller_id = ? "
             "ORDER BY line", (chunk_id,)))
 
@@ -787,11 +797,11 @@ class Store:
 
         cap = fanout_cap if fanout_cap is not None else _lim.callgraph_fanout_cap
         defs: dict[str, list[tuple[str, str]]] = {}
-        for cid, name, origin in self.db.execute(
+        for cid, name, origin in self._read_db().execute(
                 "SELECT id, name, origin FROM chunks"):
             defs.setdefault(name, []).append((origin, cid))
         edges: list[tuple[str, str]] = []
-        for caller_id, callee_name, caller_origin in self.db.execute(
+        for caller_id, callee_name, caller_origin in self._read_db().execute(
                 "SELECT DISTINCT fc.caller_id, fc.callee_name, c1.origin "
                 "FROM function_calls fc JOIN chunks c1 ON c1.id = fc.caller_id"):
             targets = defs.get(callee_name)
@@ -808,7 +818,7 @@ class Store:
 
     def type_users(self, type_name: str) -> list[ChunkRow]:
         # meta-only: consumers read identity/position fields (see callers_of)
-        rows = self.db.execute(
+        rows = self._read_db().execute(
             f"SELECT DISTINCT {_CHUNK_META_COLS} FROM type_edges te "
             "JOIN chunks ON chunks.id = te.chunk_id WHERE te.type_name = ? "
             "ORDER BY chunks.origin, chunks.line_start", (type_name,)).fetchall()
@@ -848,10 +858,10 @@ class Store:
 
     def notes_for(self, target: str | None = None) -> list[tuple[int, str, str, str]]:
         if target:
-            return list(self.db.execute(
+            return list(self._read_db().execute(
                 "SELECT id, target, text, sentiment FROM notes WHERE target = ? "
                 "ORDER BY created_at DESC", (target,)))
-        return list(self.db.execute(
+        return list(self._read_db().execute(
             "SELECT id, target, text, sentiment FROM notes ORDER BY created_at DESC"))
 
     def note_mentions(self, words: Iterable[str]) -> dict[str, int]:
@@ -891,13 +901,13 @@ class Store:
                 "VALUES (?,?,?,?)", (chunk_id, summary, hyde, model))
 
     def get_summaries(self) -> dict[str, tuple[str | None, str | None]]:
-        return {r[0]: (r[1], r[2]) for r in self.db.execute(
+        return {r[0]: (r[1], r[2]) for r in self._read_db().execute(
             "SELECT chunk_id, summary, hyde FROM llm_summaries")}
 
     # -- stats -------------------------------------------------------------
 
     def stats(self) -> dict:
-        c = self.db
+        c = self._read_db()
         return {
             "chunks": self.chunk_count(),
             "files": c.execute("SELECT COUNT(*) FROM file_registry").fetchone()[0],

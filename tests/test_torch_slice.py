@@ -1,7 +1,17 @@
 """The port's slice end to end on the CPU: index -> search -> batched serve,
 against the JAX package on the same fixture project.
 
-Tolerances: hit ids and order identical; hit scores within 1e-5."""
+Tolerances: hit ids and order identical; hit scores within 1e-5.
+
+What is compared is made stable first: each package tokenizes with its own
+C++ library when that built and loaded, else in Python, and the two paths
+give different ids for identifiers that mix letters and digits (``u32``,
+``2u64`` in the fixture project). The reference compiles its library
+straight onto the path it loads from, so test processes that start together
+in a fresh checkout can leave one of them on the Python path; its hits then
+differ from the port's (the ids at ``_assert_same_hits``). The
+``same_tokenizer_path`` fixture puts both packages on one path for every
+test here."""
 
 import json
 import os
@@ -15,6 +25,8 @@ import numpy as np
 import pytest
 import torch
 
+import cqs_tpu.native as j_native
+import cqs_tpu_torch.native as t_native
 from cqs_tpu.cli.context import CommandContext as JContext
 from cqs_tpu.pipeline import run_index_pipeline as j_index
 from cqs_tpu_torch.cli.context import CommandContext
@@ -28,6 +40,27 @@ REPO = Path(__file__).resolve().parent.parent
 QUERIES = ["validate token", "retry with exponential backoff", "session store",
            "decode jwt", "check expiry timestamp", "backoff delay",
            "authentication helpers", "revoke an active session"]
+
+
+@pytest.fixture(autouse=True)
+def same_tokenizer_path(monkeypatch):
+    """Both packages tokenize by the same path: their C++ libraries where
+    both loaded, else both in Python (``CQST_DISABLE_NATIVE``, which both
+    read on every call)."""
+    if (j_native.get_lib() is None) != (t_native.get_lib() is None):
+        monkeypatch.setenv("CQST_DISABLE_NATIVE", "1")
+
+
+def test_tokenizer_paths_are_aligned_when_one_library_is_missing(monkeypatch):
+    # the reference's library failed to build or load in this process: the
+    # fixture then turns the port's off too
+    monkeypatch.setattr(j_native, "_tried", True)
+    monkeypatch.setattr(j_native, "_lib", None)
+    monkeypatch.delenv("CQST_DISABLE_NATIVE", raising=False)
+    ported = t_native.get_lib() is not None
+    same_tokenizer_path.__wrapped__(monkeypatch)
+    assert (os.environ.get("CQST_DISABLE_NATIVE") == "1") == ported
+    assert j_native.get_lib() is None and t_native.get_lib() is None
 
 
 def _hits(res):
@@ -107,7 +140,7 @@ def test_cli_search_json_and_unported(tmp_project, capsys):
     env = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert env["command"] == "search" and 0 < len(env["results"]) <= 3
     assert env["_meta"]["device"] == "cpu"
-    assert main(["callers", "validate_token", "--path", str(tmp_project)]) == 2
+    assert main(["deps", "SessionStore", "--path", str(tmp_project)]) == 2
     assert "not yet ported" in capsys.readouterr().err
 
 

@@ -56,6 +56,14 @@ COPIES = (
     "index/stamp.py", "index/lexical.py",
     "search/synonyms.py", "search/router.py", "search/scoring.py",
     "cli/envelope.py",
+    "daemon/protocol.py", "daemon/client.py", "daemon/status.py", "daemon/inotify.py",
+    "analysis/__init__.py", "analysis/callgraph.py", "analysis/context.py",
+    "analysis/diffs.py", "analysis/extraction_audit.py", "analysis/gather.py",
+    "analysis/quality.py",
+    "eval/__init__.py", "eval/cv.py", "eval/triage.py",
+    # the JSONL and MCP surfaces reach the engine only through the context
+    # they are given: their text needs no change beyond the rename
+    "daemon/batch.py", "daemon/mcp.py",
 )
 #: Modules at a reference path that are ports, not copies: they run the
 #: device work on PyTorch, or (``native/__init__.py``, the one exception to
@@ -68,7 +76,69 @@ PORTED = (
     "models/splade.py", "native/__init__.py", "ops/__init__.py", "ops/fusion.py",
     "ops/sparse.py", "ops/topk.py", "search/__init__.py", "search/engine.py",
     "search/program.py",
+    "cli/commands.py", "daemon/dispatch.py", "daemon/server.py", "daemon/watch.py",
+    "daemon/serve.py",
 )
+
+#: The one copy that differs from its original, ``store/store.py``, and all
+#: of its difference. A worker thread must never read through the home
+#: connection (two threads running the same SQL text on one connection share
+#: its cached prepared statement, and one thread's step takes the other's
+#: row), so in the port (1) ``Store._read_db`` is the text below: it retries
+#: the read-only open and raises rather than hand out ``self.db``; (2) the
+#: read methods named in ``STORE_READS``, which the reference lets read
+#: ``self.db`` from any thread, say ``self._read_db()`` wherever the
+#: reference says ``self.db``. Every other line is the reference's.
+STORE_READ_DB = '''\
+    def _read_db(self) -> sqlite3.Connection:
+        """The connection to READ from in the calling thread: the home
+        connection on the thread that opened the store, else that thread's
+        own read-only connection (WAL gives it the last committed snapshot).
+        A worker thread is never handed the home connection: two threads that
+        run the same SQL text on one connection share its cached prepared
+        statement, and one thread's step takes the other's row. The open is
+        retried; when it still fails, the error is raised."""
+        if threading.get_ident() == self._home_thread:
+            return self.db
+        conn = getattr(self._tlocal, "conn", None)
+        if conn is None:
+            for attempt in range(3):
+                try:
+                    conn = sqlite3.connect(f"file:{self.path}?mode=ro", uri=True,
+                                           timeout=30.0)
+                    conn.execute("PRAGMA mmap_size=268435456")
+                    break
+                except sqlite3.OperationalError:
+                    if attempt == 2:
+                        raise
+                    time.sleep(0.05 * (attempt + 1))
+            self._tlocal.conn = conn
+        return conn
+
+'''
+STORE_READS = (
+    "chunk_count", "find_by_name", "iter_chunks", "all_origins", "pending_embeddings",
+    "load_embeddings", "get_embedding_by_canonical", "load_sparse", "missing_sparse",
+    "search_by_name_fts", "get_fingerprint", "registered_origins", "stale_parser_origins",
+    "callers_of", "callees_of", "call_edges", "type_users", "notes_for", "get_summaries",
+    "stats",
+)
+
+
+def port_store_text(reference: str) -> str:
+    """The reference's ``store/store.py`` (package already renamed) with the
+    port's allowed difference applied, method by method."""
+    methods = re.split(r"(?m)^(?=    def )", reference)
+    names = [m.group(1) if (m := re.match(r"    def (\w+)\(", part)) else None
+             for part in methods]
+    assert names.count("_read_db") == 1 and all(names.count(n) == 1 for n in STORE_READS)
+    for i, name in enumerate(names):
+        if name == "_read_db":
+            methods[i] = STORE_READ_DB
+        elif name in STORE_READS:
+            assert "self.db" in methods[i], name
+            methods[i] = re.sub(r"\bself\.db\b", "self._read_db()", methods[i])
+    return "".join(methods)
 
 
 def reference_imports(source: str) -> list[str]:
@@ -120,7 +190,10 @@ def test_copy_matches_reference(rel):
     port = PORT / rel
     ref = REPO / "native" / "fastscan.cpp" if rel == "native/fastscan.cpp" else REF / rel
     if rel.endswith(".py"):
-        assert port.read_text() == re.sub(r"\bcqs_tpu\.", "cqs_tpu_torch.", ref.read_text())
+        want = re.sub(r"\bcqs_tpu\.", "cqs_tpu_torch.", ref.read_text())
+        if rel == "store/store.py":
+            want = port_store_text(want)
+        assert port.read_text() == want
     else:
         assert port.read_bytes() == ref.read_bytes()
 
@@ -139,9 +212,9 @@ def test_on_disk_format_versions_shared():
 
 def test_port_runs_alone_from_a_copy(tmp_project, tmp_path):
     # both packages copied to a directory of their own, without built
-    # libraries: the port indexes and searches, and must neither import the
-    # reference nor write under it (the tokenizer's library goes to the
-    # port's _build/)
+    # libraries: the port indexes, searches and serves a daemon, and must
+    # neither import the reference nor write under it (the tokenizer's
+    # library goes to the port's _build/)
     pkgs = tmp_path / "pkgs"
     ignore = shutil.ignore_patterns("__pycache__", "_build", "*.so", "*.srchash")
     for name in ("cqs_tpu", "cqs_tpu_torch"):
@@ -160,13 +233,38 @@ def test_port_runs_alone_from_a_copy(tmp_project, tmp_path):
         import cqs_tpu_torch
         from cqs_tpu_torch.cli.main import main
         assert Path(cqs_tpu_torch.__file__).parent == pkgs / "cqs_tpu_torch"
-        root = {str(tmp_project)!r}
+        # the project under a short path: the daemon's socket lies inside it,
+        # and an AF_UNIX address holds about 107 bytes
+        import os, shutil, tempfile
+        short = tempfile.mkdtemp(prefix="cq")
+        assert len(short + "/p/.cqs-tpu/watch.sock") <= 104, (
+            "the temporary directory is too long for a Unix socket under it: " + short)
+        root = shutil.copytree({str(tmp_project)!r}, short + "/p")
+        os.mkdir(root + "/.cqs-tpu")
         assert main(["index", "--path", root, "--device", "cpu"]) == 0
         assert main(["validate token", "--path", root, "--device", "cpu", "--json"]) == 0
+        # a daemon on the socket: started, asked over the wire, stopped
+        from cqs_tpu_torch.cli.context import CommandContext
+        from cqs_tpu_torch.daemon import BatchContext, DaemonServer, ping, request
+        ctx = CommandContext.create(root, device="cpu")
+        bctx = BatchContext(ctx, micro_batch=True)
+        server = DaemonServer(bctx, ctx.index_dir)
+        server.start()
+        try:
+            assert ping(ctx.index_dir)
+            resp = request(ctx.index_dir, "search", {{"query": "validate token"}})
+            assert resp["ok"] and resp["results"], resp
+            assert main(["callers", "decode_jwt", "--path", root, "--device", "cpu"]) == 0
+        finally:
+            server.stop()
+            bctx.close()
+            ctx.close()
+        assert not ping(ctx.index_dir)
         loaded = [m for m, v in sys.modules.items() if v is not None
                   and m.split(".")[0] in ("cqs_tpu", "jax", "jaxlib", "flax", "optax")]
         assert not loaded, loaded
         assert files() == before, "files under cqs_tpu/ changed"
+        shutil.rmtree(short)
         print("STANDALONE_OK")
     """)
     path = [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
