@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``cqs_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--phases kernels,e2e,scale,serve]
+    python3 chip_smoke.py [--seed 0] [--phases kernels,e2e,scale,serve,neural]
 
 Phases, each fatal on error (non-zero exit, no result line):
 
@@ -19,6 +19,8 @@ Phases, each fatal on error (non-zero exit, no result line):
    B=128 m 64; int8 also the screened scan, tile 16384 x 256, B=1, m 16),
    timed in turns with the template at the same shape and, for bf16,
    beside ``torch.matmul`` on the score product (not the same function);
+   both split kernels also at width 768 (EmbeddingGemma's), 4,096 and
+   65,536 rows, B 1 and 64;
    int8 x int8 and int8-widened: 1,048,576 rows of width 256 and 1024,
    tiles 2048 and 4096, B 1/8/128, m 4/16; the int8 x int8 grouped kernel
    beside ``torch._int_mm`` on the same score product (not the same
@@ -60,11 +62,21 @@ Phases, each fatal on error (non-zero exit, no result line):
    saved artifacts' values for the rows it loaded at its start, the
    store's for the appended rows) and upload only the new rows; one request each through the batch loop, the MCP bridge and
    the web API; the idle unload and the query after it. An error answer
-   from the daemon fails the run.
+   from the daemon fails the run;
+7. neural: the default configuration at full width, from HF checkpoints
+   written from the seed at published geometry (EmbeddingGemma-300m,
+   splade-distil, the minilm-l6 cross-encoder): the repository indexed
+   through the CLI, the 10 queries solo, batched (equal to solo) and with
+   ``--rerank``; the bf16 EmbeddingGemma forward against an f32 forward of
+   the same weights on the card (per-row cosine >= 0.99 on 64 chunks); the
+   forward's time, tokens/s, share of the bf16 peak and peak memory at the
+   index's shapes and at 512 x 2048, its kernel profile; the B=1 query
+   embedding.
 
 The kernels' launch counters are zeroed before phase 4 and read after
-phase 5, zeroed again before phase 6 and read after it (the split bf16
-loop kernel must have launched from the socket path); a branch wrapper that
+phase 5, zeroed again before phase 6 and read after it, and again around
+phase 7 (the split bf16 loop kernel must have launched from the socket
+path and from the neural path); a branch wrapper that
 did not launch in phases 4-5 fails the run, and so
 does a split loop kernel that did not, a search of phase 4 whose solo or
 batched program did not launch the split kernel, a widening kernel that
@@ -238,7 +250,7 @@ def check_loop_split(torch, dev, seed: int) -> int:
     """The split loop kernel's two kinds slot for slot equal to the loop
     twin where the design breaks: int8 x int8 (full range, -128 included)
     and bf16 on integer values (exact f32 sums in any order, many ties);
-    widths 16/48/256/1024/4096; B 3 and 65 and every batch size the batcher
+    widths 16/48/256/768/1024/4096; B 3 and 65 and every batch size the batcher
     pads to (1/4/8/16/32/64/128: each built query block, 8, 16 and 32, and a
     second block); tiles 128, 2048 and 16384 (1 to 16 slices, so the
     merge kernel runs); m 4/16/64/128 (m 128 on 128-row tiles: m equal to a
@@ -251,7 +263,7 @@ def check_loop_split(torch, dev, seed: int) -> int:
     gen = torch.Generator(device=dev).manual_seed(seed + 7919)
     n, cases = 32768, 0
     for kernel in (LOOP_SPLIT_I8, LOOP_SPLIT):
-        for d in (16, 48, 256, 1024, 4096):
+        for d in (16, 48, 256, 768, 1024, 4096):
             if kernel is LOOP_SPLIT_I8:
                 index = torch.randint(-128, 128, (n, d), device=dev, generator=gen,
                                       dtype=torch.int8)
@@ -274,11 +286,14 @@ def check_loop_split(torch, dev, seed: int) -> int:
     return cases
 
 
-def device_busy(torch, fn, calls: int = 5) -> tuple[float, dict]:
+def device_busy(torch, fn, calls: int = 5) -> tuple[float, dict, float, dict]:
     """Device-busy milliseconds per call of fn (``torch.profiler`` kernel
-    time over ``calls`` calls after a warm-up call) and the per-call time of
-    each kernel by name. The host's launch rate does not move it, unlike
-    wall time."""
+    time over ``calls`` calls after a warm-up call), the per-call time of
+    each kernel by name (the first 60 characters; kernels whose names share
+    them are summed), the kernel launches per call, and the host's CUDA
+    runtime calls per call (``cuda*`` events: count and self milliseconds),
+    which show a launch-bound or synchronizing caller. The host's launch
+    rate does not move the busy time, unlike wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -287,12 +302,16 @@ def device_busy(torch, fn, calls: int = 5) -> tuple[float, dict]:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    by_kernel = {}
+    by_kernel, launches, runtime = {}, 0, {}
     for e in prof.key_averages():
         dev_us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
         if getattr(getattr(e, "device_type", None), "name", "") == "CUDA" and dev_us:
-            by_kernel[e.key[:60]] = dev_us / calls / 1e3
-    return sum(by_kernel.values()), by_kernel
+            key = e.key[:60]
+            by_kernel[key] = by_kernel.get(key, 0.0) + dev_us / calls / 1e3
+            launches += e.count
+        elif e.key.startswith("cuda"):
+            runtime[e.key] = (e.count / calls, e.self_cpu_time_total / calls / 1e3)
+    return sum(by_kernel.values()), by_kernel, launches / calls, runtime
 
 
 def adversarial_cases(torch, dev, rng):
@@ -415,7 +434,7 @@ def phase_kernels(torch, dev, rng, seed, report):
           f"16/48/1024/4096, B 1/3/65/128, tiles 128-16384, m 4/16/128")
     cases = check_loop_split(torch, dev, seed)
     print(f"kernels: {LOOP_SPLIT.name} (bf16, integer values) and {LOOP_SPLIT_I8.name} exact "
-          f"at {cases} cases: widths 16/48/256/1024/4096, B 3/65 and the batcher's rungs "
+          f"at {cases} cases: widths 16/48/256/768/1024/4096, B 3/65 and the batcher's rungs "
           f"1/4/8/16/32/64/128, tiles 128-16384 "
           f"(1-16 slices), m 4/16/64/128, a fully masked tile")
     for name, index, q, mask, tile, m in adversarial_cases(torch, dev, rng):
@@ -487,6 +506,21 @@ def phase_kernels(torch, dev, rng, seed, report):
                         timed(GROUPED, index, q, mask, 2048, m, 20 if n == SCALE_ROWS else 100)
             del index, mask
             torch.cuda.empty_cache()
+    # width 768 (EmbeddingGemma's): the split kernels at the neural path's
+    # shapes, the repository corpus (4,096 rows, k 64) and a daemon-sized
+    # corpus (65,536, k 32), B 1 and 64 (K is 12 bf16 or 6 int8 chunks)
+    for n in (4096, 65536):
+        gen = torch.Generator(device=dev).manual_seed(seed + n + 768)
+        index = torch.randn(n, 768, device=dev, generator=gen).to(torch.bfloat16)
+        index8 = torch.randint(-127, 128, (n, 768), device=dev, generator=gen, dtype=torch.int8)
+        mask = (torch.rand(n, device=dev, generator=gen) > 0.02).to(torch.int32)
+        for b in (1, 64):
+            q = torch.randn(b, 768, device=dev, generator=gen).to(torch.bfloat16)
+            q8 = torch.randint(-127, 128, (b, 768), device=dev, generator=gen, dtype=torch.int8)
+            m = 64 if n == 4096 else 32
+            timed(LOOP_SPLIT, index, q, mask, 2048, m, 100)
+            timed(LOOP_SPLIT_I8, index8, q8, mask, 2048, m, 100)
+        del index, index8, mask
     # int8 shapes: q8/sk8 at the repository corpus (k 64, the batcher's
     # rungs) and 65,536 rows (k 32); at 1,048,576 rows the q8 dense (x 256) and sketch (x 1024) scans
     # at tile 2048, sk8's sketch scan at tile 4096, B 1/8/128, k 4/16, and
@@ -932,7 +966,7 @@ def phase_daemon(torch, dev, seed: int, report, n: int = 65536, b: int = 64):
     before = LOOP_SPLIT.launches
     fn = w.programs["bf16"]
     wall = cuda_ms(lambda: fn(0, b), 20)
-    busy, by_kernel = device_busy(torch, lambda: fn(0, b), 5)
+    busy, by_kernel, _, _ = device_busy(torch, lambda: fn(0, b), 5)
     if dev.type == "cuda" and LOOP_SPLIT.launches <= before:
         fail(f"the B={b} batch at {n} rows did not launch {LOOP_SPLIT.name}")
     scans = {k: x for k, x in by_kernel.items() if "loop_split" in k or "merge_slices" in k}
@@ -1171,7 +1205,7 @@ def phase_serve(torch, dev, report, smi: str):
         def on_the_card(when: str) -> None:
             for t in (eng.dense.matrix, eng.dense.mask, eng.dense_base.matrix,
                       eng.sparse.sketch, eng.sparse.doc_ids, eng.sparse.doc_w, eng.sparse.mask,
-                      eng.embedder._table):
+                      eng.embedder._model):
                 if not t.is_cuda:
                     fail(f"serve: {when}: an index or model tensor is not on the card")
 
@@ -1447,13 +1481,13 @@ def phase_serve(torch, dev, report, smi: str):
 
         # -- idle unload, then the table comes back on the card
         held = torch.cuda.memory_allocated()
-        if not bctx.maybe_idle_unload(idle_s=1e9) or eng.embedder._table is not None:
+        if not bctx.maybe_idle_unload(idle_s=1e9) or eng.embedder._model is not None:
             fail("serve: the idle unload did not drop the embedder's table")
         freed = held - torch.cuda.memory_allocated()
         if freed <= 0:
             fail("serve: the idle unload freed no device memory")
         resp = ask("search", {"query": "reload the table after an idle unload"})
-        table = eng.embedder._table
+        table = eng.embedder._model
         if not resp["results"] or table is None or not table.is_cuda:
             fail("serve: the query after the idle unload was not answered from the card")
         out["idle_unload_freed_bytes"] = freed
@@ -1475,10 +1509,356 @@ def phase_serve(torch, dev, report, smi: str):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- phase 7: the neural models at full width ----------------------------------
+
+#: EmbeddingGemma-300m's published geometry (HF ``config.json`` of a Gemma3
+#: text model; both packages' ``GemmaConfig`` defaults): 24 layers, every 6th
+#: full attention, the others sliding with window 512
+GEMMA_HF = {"architectures": ["Gemma3TextModel"], "model_type": "gemma3_text",
+            "vocab_size": 262144, "hidden_size": 768, "num_hidden_layers": 24,
+            "num_attention_heads": 3, "num_key_value_heads": 1, "head_dim": 256,
+            "intermediate_size": 1152, "max_position_embeddings": 2048, "sliding_window": 512,
+            "rope_theta": 1e6, "rope_local_base_freq": 1e4, "query_pre_attn_scalar": 256,
+            "rms_norm_eps": 1e-6, "use_bidirectional_attention": True,
+            "layer_types": ["sliding_attention" if (i + 1) % 6 else "full_attention"
+                            for i in range(24)]}
+GEMMA_HEAD = (3072, 768)              # the SentenceTransformer 2_Dense / 3_Dense widths
+#: splade-distil (naver/splade-cocondenser-ensembledistil: BERT-base MLM) and
+#: the minilm-l6 cross-encoder (ms-marco-MiniLM-L-6-v2), as HF ``config.json``
+SPLADE_HF = {"architectures": ["BertForMaskedLM"], "model_type": "bert", "vocab_size": 30522,
+             "hidden_size": 768, "num_hidden_layers": 12, "num_attention_heads": 12,
+             "intermediate_size": 3072, "max_position_embeddings": 512, "type_vocab_size": 2}
+RERANK_HF = {**SPLADE_HF, "architectures": ["BertForSequenceClassification"],
+             "hidden_size": 384, "num_hidden_layers": 6, "intermediate_size": 1536,
+             "num_labels": 1}
+BF16_PEAK_FLOPS = 989e12
+
+
+def write_checkpoints(torch, dev, root: Path, seed: int, gemma=GEMMA_HF, head=GEMMA_HEAD,
+                      splade=SPLADE_HF, rerank=RERANK_HF) -> dict[str, Path]:
+    """HF-layout checkpoints (``config.json`` + bf16 ``model.safetensors``,
+    written by the port's own safetensors writer) with weights drawn on the
+    card from ``seed``: linear and embedding weights N(0, 0.02), norm
+    weights at their identity plus N(0, 0.05). EmbeddingGemma carries its
+    ``2_Dense``/``3_Dense`` head; the SPLADE checkpoint omits the MLM decoder
+    (tied to the word embeddings, as HF saves it); no ``tokenizer.json``
+    (the hash tokenizer, as the reference without one)."""
+    from cqs_tpu_torch.models.loader import write_safetensors
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+
+    def draw(*shape, std=0.02, base=0.0):
+        return (base + std * torch.randn(*shape, device=dev, generator=gen)).to(torch.bfloat16).cpu()
+
+    def save(d: Path, config: dict, tensors: dict) -> Path:
+        d.mkdir(parents=True)
+        (d / "config.json").write_text(json.dumps(config, indent=1))
+        write_safetensors(d / "model.safetensors", tensors)
+        return d
+
+    H, I, L = gemma["hidden_size"], gemma["intermediate_size"], gemma["num_hidden_layers"]
+    hd, nh, nkv = gemma["head_dim"], gemma["num_attention_heads"], gemma["num_key_value_heads"]
+    g = {"embed_tokens.weight": draw(gemma["vocab_size"], H), "norm.weight": draw(H, std=0.05)}
+    for i in range(L):
+        b = f"layers.{i}."
+        g.update({b + "self_attn.q_proj.weight": draw(nh * hd, H),
+                  b + "self_attn.k_proj.weight": draw(nkv * hd, H),
+                  b + "self_attn.v_proj.weight": draw(nkv * hd, H),
+                  b + "self_attn.o_proj.weight": draw(H, nh * hd),
+                  b + "self_attn.q_norm.weight": draw(hd, std=0.05),
+                  b + "self_attn.k_norm.weight": draw(hd, std=0.05),
+                  b + "mlp.gate_proj.weight": draw(I, H), b + "mlp.up_proj.weight": draw(I, H),
+                  b + "mlp.down_proj.weight": draw(H, I)})
+        for norm in ("input_layernorm", "post_attention_layernorm", "pre_feedforward_layernorm",
+                     "post_feedforward_layernorm"):
+            g[b + norm + ".weight"] = draw(H, std=0.05)
+    out = {"gemma": save(root / "embeddinggemma", gemma, g)}
+    for sub, (i, o) in (("2_Dense", (H, head[0])), ("3_Dense", head)):
+        save(out["gemma"] / sub, {"in_features": i, "out_features": o, "bias": False},
+             {"linear.weight": draw(o, i)})
+
+    def bert(c: dict, top: dict) -> dict:
+        H, I = c["hidden_size"], c["intermediate_size"]
+        t = {"bert.embeddings.word_embeddings.weight": draw(c["vocab_size"], H),
+             "bert.embeddings.position_embeddings.weight": draw(c["max_position_embeddings"], H),
+             "bert.embeddings.token_type_embeddings.weight": draw(c["type_vocab_size"], H),
+             "bert.embeddings.LayerNorm.weight": draw(H, std=0.05, base=1.0),
+             "bert.embeddings.LayerNorm.bias": draw(H)}
+        for i in range(c["num_hidden_layers"]):
+            b = f"bert.encoder.layer.{i}."
+            for name, (o, n) in (("attention.self.query", (H, H)), ("attention.self.key", (H, H)),
+                                 ("attention.self.value", (H, H)),
+                                 ("attention.output.dense", (H, H)),
+                                 ("intermediate.dense", (I, H)), ("output.dense", (H, I))):
+                t[b + name + ".weight"], t[b + name + ".bias"] = draw(o, n), draw(o)
+            for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+                t[b + name + ".weight"] = draw(H, std=0.05, base=1.0)
+                t[b + name + ".bias"] = draw(H)
+        t.update(top)
+        return t
+
+    H = splade["hidden_size"]
+    out["splade"] = save(root / "splade", splade, bert(splade, {
+        "cls.predictions.transform.dense.weight": draw(H, H),
+        "cls.predictions.transform.dense.bias": draw(H),
+        "cls.predictions.transform.LayerNorm.weight": draw(H, std=0.05, base=1.0),
+        "cls.predictions.transform.LayerNorm.bias": draw(H),
+        "cls.predictions.bias": draw(splade["vocab_size"])}))
+    H = rerank["hidden_size"]
+    out["rerank"] = save(root / "rerank", rerank, bert(rerank, {
+        "bert.pooler.dense.weight": draw(H, H), "bert.pooler.dense.bias": draw(H),
+        "classifier.weight": draw(1, H), "classifier.bias": draw(1)}))
+    return out
+
+
+def gemma_flops(cfg, b: int, length: int) -> float:
+    """Operations of one ``GemmaEmbedder`` forward over ``b`` rows of
+    ``length`` tokens (2 a multiply-add): the projections and the MLP per
+    token, q.k and probabilities.v per row over the whole [L, L] (as the
+    model computes it, the window being a bias), the head per row."""
+    H, hd = cfg.hidden_size, cfg.head_dim
+    per_token = 2 * H * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd + 2 * cfg.num_heads * hd * H \
+        + 3 * 2 * H * cfg.intermediate_size
+    per_row = 2 * 2 * cfg.num_heads * length * length * hd
+    head = 2 * (H * cfg.proj_hidden + cfg.proj_hidden * cfg.embed_dim) if cfg.use_projection else 0
+    return float(cfg.num_layers * (b * length * per_token + b * per_row) + b * head)
+
+
+def phase_neural(torch, dev, seed: int, report, smi: str, checkpoints=write_checkpoints,
+                 timed_shapes=((512, 2048),)):
+    """The default configuration end to end at full width: EmbeddingGemma-300m
+    dense, splade-distil sparse, ``--rerank`` over minilm-l6, from HF
+    checkpoints written here from the seed. Indexes this repository through
+    the CLI, answers the 10 queries solo, as one batcher burst (equal to
+    solo) and reranked, and two CLI searches (one ``--rerank``); holds the
+    card's bf16 EmbeddingGemma forward against an f32 forward of the same
+    weights on 64 chunks (cosine >= 0.99); times the forward at every
+    (batch, bucket) the index ran and at ``timed_shapes``, the B=1 query
+    embedding, and the f32 q.k product against a bf16 one; profiles a 64 x
+    2048 forward and a query's 8 x 64 (device-busy, launches, top kernels)."""
+    import dataclasses
+
+    import numpy as np
+
+    from cqs_tpu_torch.cli.context import CommandContext
+    from cqs_tpu_torch.cli.main import main
+    from cqs_tpu_torch.daemon.batcher import QueryBatcher
+    from cqs_tpu_torch.models.embedder import Embedder, build_module
+    from cqs_tpu_torch.models.gemma import GemmaConfig, GemmaEmbedder
+    from cqs_tpu_torch.models.layers import ATTN_SLICE_BYTES
+    from cqs_tpu_torch.models.loader import load_safetensors_params
+
+    tmp = Path(tempfile.mkdtemp(prefix="cqs_neural_"))
+    out: dict = {"smi": smi}
+    ctx = None
+    shapes: dict = {}
+    forward = Embedder._forward
+    try:
+        t0 = time.perf_counter()
+        ckpt = checkpoints(torch, dev, tmp / "models", seed)
+        out["checkpoints_s"] = time.perf_counter() - t0
+        proj = tmp / "corpus"
+        proj.mkdir()
+        copy_corpus(proj)
+        (proj / ".cqs-tpu.toml").write_text(
+            f'[embedding]\nmodel = "embeddinggemma-300m"\nmodel_path = "{ckpt["gemma"]}"\n'
+            f'[splade]\nmodel = "splade-distil"\nmodel_path = "{ckpt["splade"]}"\n'
+            f'[reranker]\nmodel = "minilm-l6"\nmodel_path = "{ckpt["rerank"]}"\n')
+
+        def tally(self, ids, mask):                 # the (batch, bucket) shapes the index runs
+            shapes[ids.shape] = shapes.get(ids.shape, 0) + 1
+            return forward(self, ids, mask)
+
+        Embedder._forward = tally
+        try:
+            rc, env, ms = run_cli(main, ["index", "--path", str(proj), "--device", str(dev),
+                                         "--json"])
+        finally:
+            Embedder._forward = forward
+        if rc != 0 or env is None:
+            fail(f"neural: index exited {rc}")
+        stats = env["results"]
+        out.update(index_s=ms / 1e3, chunks=stats["chunks_upserted"],
+                   forward_shapes={f"{b}x{n}": c for (b, n), c in sorted(shapes.items())})
+        print(f"neural: indexed {stats['files_parsed']} files -> {stats['chunks_upserted']} chunks "
+              f"({stats['embedded']} embedded, {stats['sparse_encoded']} sparse) with "
+              f"EmbeddingGemma-300m + splade-distil in {ms / 1e3:.1f} s (checkpoints written in "
+              f"{out['checkpoints_s']:.1f} s); forwards (batch x bucket: calls) "
+              f"{out['forward_shapes']}; {smi}")
+        ctx = CommandContext.create(str(proj), device=dev)
+        eng = ctx.engine
+        emb = eng.embedder
+        model = emb._ensure_model()
+        if (emb.preset.name != "embeddinggemma-300m" or not isinstance(model, torch.nn.Module)
+                or eng.splade.preset.name != "splade-distil" or eng.dense.matrix.shape[1] != 768):
+            fail("neural: the engine does not run EmbeddingGemma + splade-distil at width 768")
+        if dev.type == "cuda" and not all(p.is_cuda for p in model.parameters()):
+            fail("neural: the embedder's weights are not on the card")
+
+        solo, search_ms = {}, []
+        for q in QUERIES:
+            res = eng.search(q)
+            if not res.hits:
+                fail(f"neural: search {q!r} has no hits")
+            solo[q] = [(h.row.id, h.score) for h in res.hits]
+            search_ms.append(res.elapsed_ms)
+        # the burst on a second engine, so no solo result comes from a cache
+        ctx2 = CommandContext.create(str(proj), device=dev)
+        batcher = QueryBatcher(ctx2.engine)
+        try:
+            batcher.pause()
+            futs = [batcher.submit(q) for q in QUERIES]
+            batcher.resume()
+            batched = [f.result(timeout=300) for f in futs]
+        finally:
+            batcher.stop()
+            ctx2.close()
+        # queries at alpha 1 (dense only) run the solo program in the batcher
+        st = batcher.stats
+        if st["fused"] == 0 or st["fused"] + st["solo"] != len(QUERIES):
+            fail(f"neural: the burst did not run batched: {st}")
+        for q, res in zip(QUERIES, batched):
+            if not same_hits([(h.row.id, h.score) for h in res.hits], solo[q]):
+                fail(f"neural: batched result of {q!r} differs from solo")
+        moved, rerank_ms = 0, []
+        for q in QUERIES:
+            res = eng.search(q, rerank=True)
+            if not res.hits:
+                fail(f"neural: reranked search {q!r} has no hits")
+            moved += [h.row.id for h in res.hits] != [i for i, _ in solo[q]]
+            rerank_ms.append(res.elapsed_ms)
+        if type(eng._reranker).__name__ != "CrossEncoderReranker":
+            fail(f"neural: --rerank ran {type(eng._reranker).__name__}, not the cross-encoder")
+        cli = {}
+        for label, extra in (("search", []), ("search --rerank", ["--rerank"])):
+            rc, env, ms = run_cli(main, [QUERIES[0], *extra, "--path", str(proj), "--device",
+                                         str(dev), "--json"])
+            if rc != 0 or env is None or not env["results"]:
+                fail(f"neural: CLI {label} exited {rc} without hits")
+            cli[label] = ms
+        out.update(search_ms=statistics.median(search_ms), rerank_ms=statistics.median(rerank_ms),
+                   reranked_orders_changed=moved, cli_ms=cli)
+        print(f"neural: {len(QUERIES)} queries: batched == solo ({st['fused']} in {st['batches']} "
+              f"device batch(es), {st['solo']} dense-only solo); engine.search median {out['search_ms']:.2f} ms, reranked "
+              f"{out['rerank_ms']:.2f} ms ({moved} of {len(QUERIES)} orders changed by "
+              f"minilm-l6); CLI calls (model loads included): "
+              f"{', '.join(f'{k} {v:.0f} ms' for k, v in cli.items())}; {smi}")
+
+        # bf16 on the card against f32 of the same weights on the card
+        texts = [r.nl or r.body for r in ctx.store.iter_chunks()][:64]
+        cfg = GemmaConfig.from_hf_config(ckpt["gemma"])
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        m32 = build_module(lambda: GemmaEmbedder(cfg32), dev, 0)
+        m32.load_state_dict(load_safetensors_params(ckpt["gemma"], m32.state_dict(), "gemma"))
+        emb32 = Embedder("embeddinggemma-300m", ckpt["gemma"], device=dev)
+        emb32._model = m32
+        v16, v32 = emb.embed_documents(texts), emb32.embed_documents(texts)
+        cos = (v16 * v32).sum(1) / (np.linalg.norm(v16, axis=1) * np.linalg.norm(v32, axis=1))
+        out["bf16_vs_f32_cosine"] = {"min": float(cos.min()), "median": float(np.median(cos)),
+                                     "rows": len(texts)}
+        print(f"neural: bf16 forward vs f32 forward of the same weights on {len(texts)} chunks: "
+              f"per-row cosine min {cos.min():.6f}, median {np.median(cos):.6f}; {smi}")
+        if not np.isfinite(v16).all() or cos.min() < 0.99:
+            fail(f"neural: bf16 against f32 cosine {cos.min():.6f} < 0.99")
+        del m32, emb32
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # the forward at the shapes the index ran and at the largest
+        gen = torch.Generator(device=dev).manual_seed(seed + 11)
+        rows = []
+        for b, n in sorted(set(shapes) | set(timed_shapes)):
+            ids = torch.randint(3, emb.tokenizer.vocab_size, (b, n), device=dev, generator=gen)
+            mask = torch.ones(b, n, dtype=torch.int32, device=dev)
+            iters = 2 if b * n >= 1 << 18 else 5 if b * n >= 1 << 15 else 20
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            with torch.inference_mode():
+                ms = cuda_ms(lambda: model(ids, mask), iters)
+            flops = gemma_flops(cfg, b, n)
+            row = {"batch": b, "bucket": n, "ms": ms, "tokens_per_s": b * n / ms * 1e3,
+                   "tflops": flops / ms / 1e9, "peak_share": flops / ms * 1e3 / BF16_PEAK_FLOPS,
+                   "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2**30
+                                    if dev.type == "cuda" else None),
+                   "index_calls": shapes.get((b, n), 0)}
+            rows.append(row)
+            print(f"neural: forward {b} x {n}: {ms:.3f} ms, {row['tokens_per_s']:.0f} tokens/s, "
+                  f"{row['tflops']:.1f} TFLOP/s = {row['peak_share']:.1%} of the 989 TFLOP/s bf16 "
+                  f"dense peak, peak memory {row['peak_mem_gib'] or 0:.2f} GiB "
+                  f"({row['index_calls']} calls in the index); {smi}")
+            del ids, mask
+        out["forward"] = rows
+        # the f32 q.k product of one attention slice at the largest timed
+        # shape (at 512 x 2048: 21 rows of 3 heads x 2048 x 256) against the
+        # same product in bf16
+        b, n = max(timed_shapes, key=lambda s: s[0] * s[1] * s[1])
+        b = min(b, max(1, ATTN_SLICE_BYTES // (cfg.num_heads * n * n * 4)))
+        q = torch.randn(b, cfg.num_heads, n, cfg.head_dim, device=dev, generator=gen)
+        k = torch.randn(b, cfg.num_heads, n, cfg.head_dim, device=dev, generator=gen)
+        q16, k16 = q.to(torch.bfloat16), k.to(torch.bfloat16)
+        f32_ms = cuda_ms(lambda: torch.matmul(q, k.transpose(-1, -2)), 5)
+        bf16_ms = cuda_ms(lambda: torch.matmul(q16, k16.transpose(-1, -2)), 5)
+        out["qk_slice"] = {"shape": [b, cfg.num_heads, n, n, cfg.head_dim],
+                           "f32_ms": f32_ms, "bf16_ms": bf16_ms}
+        print(f"neural: q.k of one attention slice ({b} x {cfg.num_heads} x {n} x {n} x "
+              f"{cfg.head_dim}): f32 {f32_ms:.3f} ms, bf16 {bf16_ms:.3f} ms; {smi}")
+        del q, k, q16, k16
+        # where the forward's time goes: one 64 x 2048 forward (per row the
+        # mix of 512 x 2048) and the shape of a B=1 query embedding
+        out["profile"] = {}
+        for b, n in ((64, 2048), (8, 64)):
+            ids = torch.randint(3, emb.tokenizer.vocab_size, (b, n), device=dev, generator=gen)
+            mask = torch.ones(b, n, dtype=torch.int32, device=dev)
+            with torch.inference_mode():
+                busy, by_kernel, launches, runtime = device_busy(
+                    torch, lambda: model(ids, mask), 2)
+                wall = cuda_ms(lambda: model(ids, mask), 2)
+            top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+            host = sorted(runtime.items(), key=lambda kv: -kv[1][1])[:4]
+            # operations that make the host wait for the card, one forward
+            syncs: dict = {}
+            if dev.type == "cuda":
+                import warnings
+
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    with warnings.catch_warnings(record=True) as caught, torch.inference_mode():
+                        warnings.simplefilter("always")
+                        model(ids, mask)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                for w in caught:
+                    line = str(w.message).splitlines()[0][:80]
+                    syncs[line] = syncs.get(line, 0) + 1
+            out["profile"][f"{b}x{n}"] = {"busy_ms": busy, "wall_ms": wall, "launches": launches,
+                                         "top": top, "runtime": host, "syncs": syncs}
+            print(f"neural: profile {b} x {n}: device-busy {busy:.3f} ms of {wall:.3f} ms wall, "
+                  f"{launches:.0f} kernel launches a forward; top kernels (ms): "
+                  f"{'; '.join(f'{k} {v:.3f}' for k, v in top)}; host CUDA calls (count, ms): "
+                  f"{'; '.join(f'{k} {c:.0f} {t:.3f}' for k, (c, t) in host)}; host waits "
+                  f"(sync debug mode): {syncs or 'none'}; {smi}")
+        # B=1 query embedding (a new text each time: no LRU or cache hit)
+        lat = []
+        for i in range(20):
+            t1 = time.perf_counter()
+            emb.embed_query(f"{QUERIES[i % len(QUERIES)]} variant {i}")
+            lat.append((time.perf_counter() - t1) * 1e3)
+        out["query_embed_ms"] = statistics.median(lat)
+        print(f"neural: B=1 query embedding (pads to 8 x 64) median {out['query_embed_ms']:.2f} "
+              f"ms host clock over 20 new queries; {smi}")
+        report["neural"] = out
+    finally:
+        Embedder._forward = forward
+        if ctx is not None:
+            ctx.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="kernels,e2e,scale,serve")
+    ap.add_argument("--phases", default="kernels,e2e,scale,serve,neural")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not (REPO / "cqs_tpu_torch" / "__init__.py").is_file():
@@ -1538,6 +1918,17 @@ def main() -> int:
         print(f"launches on the daemon's path: {serve_launches}")
         if LOOP_SPLIT.launches == 0:
             fail(f"kernel {LOOP_SPLIT.name} was not launched on the daemon's path")
+    # the neural configuration's path: zeroed just before, read just after
+    for k in IMPLS:
+        k.launches = 0
+    if "neural" in phases:
+        phase_neural(torch, dev, args.seed, report, smi)
+    torch.cuda.synchronize()
+    neural_launches = {k.name: k.launches for k in IMPLS}
+    if "neural" in phases:
+        print(f"launches on the neural path: {neural_launches}")
+        if LOOP_SPLIT.launches == 0:
+            fail(f"kernel {LOOP_SPLIT.name} was not launched on the neural path")
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")]
     if loaded:
         fail(f"JAX modules were imported: {loaded[:5]}")
@@ -1556,9 +1947,11 @@ def main() -> int:
         bound = bound_ms(k.kind, *case[:2], case[3], case[2], case[4])
         kernels.append({"name": k.name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces,
-                        "launches": launches[k.name] + serve_launches[k.name],
+                        "launches": (launches[k.name] + serve_launches[k.name]
+                                     + neural_launches[k.name]),
                         "main_path_launches": launches[k.name],
                         "daemon_path_launches": serve_launches[k.name],
+                        "neural_path_launches": neural_launches[k.name],
                         "kernel_phase_launches": kernel_phase[k.name],
                         "max_abs_err": report.get("errs", {}).get(k.name),
                         "shape": dict(zip(("n", "d", "tile", "b", "m"), case)),

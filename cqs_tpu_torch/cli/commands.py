@@ -87,9 +87,6 @@ def _parse_chunk_types(args):
 
 
 def cmd_search(ctx: CommandContext, args) -> int:
-    if args.rerank:
-        print("cqs-tpu-torch: --rerank is not yet ported", file=sys.stderr)
-        return 2
     if not Path(ctx.index_dir).exists() or ctx.store.chunk_count() == 0:
         msg = "no index found — run `python -m cqs_tpu_torch index` first"
         if args.json:
@@ -109,7 +106,8 @@ def cmd_search(ctx: CommandContext, args) -> int:
     try:
         res = eng.search(args.query, limit=args.limit, path_filter=args.path_filter,
                          lang_filter=args.lang, alpha_override=args.alpha,
-                         chunk_types=chunk_types, include_docs=args.include_docs)
+                         chunk_types=chunk_types, rerank=args.rerank,
+                         include_docs=args.include_docs)
     finally:
         if args.threshold is not None:
             if prior is None:

@@ -1,9 +1,10 @@
 """CLI command context: project root, config, store, models and engine on an
 explicit device.
 
-Port of ``cqs_tpu/cli/context.py``. Neural presets without local weights
-fall back to the hash tier, as in the reference; with weights they raise
-(not yet ported). Tiered serving (``tier_slot``) is not ported either.
+Port of ``cqs_tpu/cli/context.py``. A neural preset with a configured
+``model_path`` runs its model on the context's device; without local
+weights the embedder and the SPLADE encoder fall back to the hash tier, as
+in the reference. Tiered serving (``tier_slot``) is not ported.
 """
 
 from __future__ import annotations
@@ -55,6 +56,11 @@ class CommandContext:
                 config.model_path = str(emb["model_path"])
             if "splade" in overlay and overlay["splade"].get("model_path"):
                 config.splade_model_path = str(overlay["splade"]["model_path"])
+            rr = overlay.get("reranker", {})
+            if rr.get("model"):
+                config.reranker_model = str(rr["model"])
+            if rr.get("model_path"):
+                config.reranker_model_path = str(rr["model_path"])
             scoring = overlay.get("scoring", {})
             config.alpha_overrides.update(
                 {str(k): float(v) for k, v in scoring.get("alpha", {}).items()})
@@ -103,7 +109,8 @@ class CommandContext:
                 model = "splade-hash"
             if self.config.splade_model_path is None and get_preset(model).family != "hash":
                 model = "splade-hash"
-            self._splade = SpladeEncoder(model, self.config.splade_model_path)
+            self._splade = SpladeEncoder(model, self.config.splade_model_path,
+                                         device=self.device)
         return self._splade
 
     @property

@@ -82,7 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--filter", dest="path_filter", help="path glob filter")
     sp.add_argument("--alpha", type=float, help="override fusion alpha")
     sp.add_argument("--rerank", action="store_true",
-                    help="cross-encoder rerank (not yet ported: exits 2)")
+                    help="cross-encoder rerank of the top pool (opt-in; [reranker] model_path)")
     sp.add_argument("--body", action="store_true", help="include chunk bodies")
     sp.add_argument("--include-docs", action="store_true",
                     help="include section/module/config chunks")

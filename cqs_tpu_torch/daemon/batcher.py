@@ -170,8 +170,11 @@ class QueryBatcher:
                                                eng.centroids, eng.lim)
             alpha = resolve_alpha(cls, eng._alpha_overrides(), eng.lim)
             index = eng._pick_dense_index(cls)
+            # alpha 1 (dense only): the solo path runs the exact dense-only
+            # program, whose pool the hybrid batch program's per-tile and
+            # sketch candidates would not reproduce; the reference batches it
             if (cls.strategy is Strategy.NAME_ONLY or eng.sparse is None
-                    or index is None
+                    or index is None or alpha >= 1.0
                     or eng.sparse.capacity != index.capacity
                     or eng.sparse.ids_digest != index.ids_digest):
                 solo.append(p)

@@ -28,8 +28,10 @@ the serving indexes' ids to binding the result, so a delta is never applied
 to indexes another refresh swapped in meanwhile. It is taken before
 ``index_lock``, never inside it, and no query takes it.
 
-Not on this slice (they raise or are absent): the worktree overlay, the
-ANN/graph tiers, mesh sharding, rerank and tiered serving.
+The opt-in cross-encoder rerank (``_rerank``) runs the port's
+``CrossEncoderReranker`` on the engine's device. Not on this slice (they
+raise or are absent): the worktree overlay, the ANN/graph tiers, mesh
+sharding and tiered serving.
 """
 
 from __future__ import annotations
@@ -418,8 +420,6 @@ class SearchEngine:
         excluded unless ``include_docs`` or a ``chunk_types`` filter names
         them), as in the reference. ``meta["device_ms"]`` is the host-clock
         time of the device program including its result transfer."""
-        if rerank:
-            raise NotImplementedError("rerank is not yet ported (ROADMAP)")
         if use_overlay:
             raise NotImplementedError("the worktree overlay is not yet ported (ROADMAP)")
         t0 = time.perf_counter()
@@ -513,7 +513,7 @@ class SearchEngine:
                 cands.append(c)
 
         hits = self._host_stage(query, cls, cands, ctx, limit, q_vec, index,
-                                legs_future, full_rrf, meta)
+                                legs_future, full_rrf, meta, rerank=rerank)
         meta["pool"] = pool
         meta["centroid_rerouted"] = cls.rerouted_by_centroid
         res = SearchResult(hits, cls.category.value, cls.strategy.value, alpha,
@@ -1342,3 +1342,41 @@ class SearchEngine:
         vec = self.embedder.embed_query(query)
         self.query_cache.put(query, fp, vec)
         return vec
+
+    def _rerank(self, query: str, cands: list[Candidate]) -> list[Candidate]:
+        """Opt-in cross-encoder rerank over the top ``rerank_pool``
+        (``engine.py:1568-1613``): a reranker without weights degrades to a
+        logged no-op; ``rerank_blend`` > 0 RRF-blends the cross-encoder order
+        with the fused one instead of replacing it."""
+        from cqs_tpu_torch.models import CrossEncoderReranker, NoopReranker, WeightlessModelError
+
+        pool = cands[: self.lim.rerank_pool]
+        if len(pool) < 2:
+            return cands
+        if not hasattr(self, "_reranker"):
+            model = (self.config.reranker_model if self.config and self.config.reranker_model
+                     else "minilm-l6")
+            path = self.config.reranker_model_path if self.config else None
+            try:
+                self._reranker = CrossEncoderReranker(model, path, device=self.device)
+            except WeightlessModelError:
+                get_tracer("engine").warning(
+                    "reranker %s has no local weights; --rerank is a no-op "
+                    "(set rerank model_path)", model)
+                self._reranker = NoopReranker()
+        full = {r.id: r for r in self.store.get_chunks_by_ids([c.row.id for c in pool])}
+        order = self._reranker.rerank(
+            query, [(full[c.row.id].nl or full[c.row.id].body[:1000])
+                    if c.row.id in full else (c.row.nl or c.row.body[:1000])
+                    for c in pool])
+        blend = float(self.lim.rerank_blend)
+        if blend > 0.0 and order != list(range(len(pool))):
+            K = 60.0
+            ce_rank = {pi: r for r, pi in enumerate(order)}
+            blended = [(1.0 - blend) / (K + ce_rank[i]) + blend / (K + i)
+                       for i in range(len(pool))]
+            order = sorted(range(len(pool)), key=lambda i: -blended[i])
+        reranked = [pool[i] for i in order]
+        for rank, c in enumerate(reranked):
+            c.boosts["rerank_pos"] = rank
+        return reranked + cands[self.lim.rerank_pool:]

@@ -101,7 +101,7 @@ def worker(rounds: int, sizes: dict[int, list[int]], dump: str | None) -> dict:
         np.savez(dump, **results)
     # the profiler last, after every wall time
     for key, fn in progs.items():
-        busy, by_kernel = smoke.device_busy(torch, fn, 5)
+        busy, by_kernel, _, _ = smoke.device_busy(torch, fn, 5)
         out["profile"][key] = {"device_ms": busy, "kernels": len(by_kernel),
                                "scan_ms": {k: x for k, x in by_kernel.items()
                                            if any(s in k for s in SCAN_KERNELS)}}

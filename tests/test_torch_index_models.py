@@ -163,9 +163,13 @@ def test_embeddings_through_jax_params():
 
 
 def test_neural_families_not_ported():
-    with pytest.raises(NotImplementedError, match="Neural model families"):
+    # the neural families are ported (tests/test_torch_models.py); without
+    # weights they are refused, as in the reference
+    from cqs_tpu_torch.models import WeightlessModelError
+
+    with pytest.raises(WeightlessModelError, match="no weights"):
         Embedder("bge-large-ft", device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(WeightlessModelError, match="no weights"):
         SpladeEncoder("splade-distil")
 
 

@@ -174,6 +174,31 @@ def test_batcher_batched_equals_solo(tmp_project):
         _assert_same_hits(_hits(res), solo[q])
 
 
+def test_batcher_runs_dense_only_queries_solo(tmp_project):
+    # alpha 1 (here every category's, from the config) makes the solo path
+    # run the dense-only program; the batcher sends such queries that way
+    from cqs_tpu_torch.search.router import Category
+
+    (tmp_project / ".cqs-tpu.toml").write_text(
+        "[scoring.alpha]\n" + "".join(f"{c.value} = 1.0\n" for c in Category))
+    assert main(["index", "--path", str(tmp_project), "--device", "cpu"]) == 0
+    solo = _port_search(tmp_project, QUERIES[:5])
+    ctx = CommandContext.create(str(tmp_project), device="cpu")
+    batcher = QueryBatcher(ctx.engine)
+    try:
+        batcher.pause()
+        futs = [batcher.submit(q) for q in QUERIES[:5]]
+        batcher.resume()
+        results = [f.result(timeout=60) for f in futs]
+    finally:
+        batcher.stop()
+        ctx.close()
+    assert batcher.stats["fused"] == 0 and batcher.stats["solo"] == 5
+    for q, res in zip(QUERIES[:5], results):
+        assert res.alpha == 1.0 and not res.strategy.endswith("+batched")
+        _assert_same_hits(_hits(res), solo[q])
+
+
 @pytest.mark.parametrize("block_jax", [True, False])
 def test_no_jax_subprocess(tmp_project, block_jax):
     # blocked: a machine without JAX; not blocked: JAX installed, as on the

@@ -78,6 +78,8 @@ PORTED = (
     "search/program.py",
     "cli/commands.py", "daemon/dispatch.py", "daemon/server.py", "daemon/watch.py",
     "daemon/serve.py",
+    "models/bert.py", "models/gemma.py", "models/hybrid.py", "models/loader.py",
+    "models/reranker.py",
 )
 
 #: The one copy that differs from its original, ``store/store.py``, and all
@@ -169,6 +171,39 @@ PORT_SOURCES = sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py")
 @pytest.mark.parametrize("rel", PORT_SOURCES)
 def test_no_import_of_reference(rel):
     assert reference_imports((REPO / rel).read_text()) == []
+
+
+#: Packages the card's machine lacks or the port must not load; the neural
+#: model modules import none of them (the one exception in the package is
+#: ``models/tokenizer.py``, a drift-pinned copy whose ``HFTokenizer`` loads
+#: ``tokenizers`` for a ``tokenizer.json``)
+FOREIGN = ("jax", "jaxlib", "flax", "optax", "safetensors", "transformers", "tokenizers")
+MODEL_SOURCES = ("models/__init__.py", "models/bert.py", "models/convert.py",
+                 "models/embedder.py", "models/gemma.py", "models/hybrid.py",
+                 "models/layers.py", "models/loader.py", "models/reranker.py",
+                 "models/splade.py", "search/engine.py", "cli/context.py", "cli/commands.py")
+
+
+def imported_roots(source: str) -> set[str]:
+    """Top-level package names a Python source imports, at any depth."""
+    roots = set()
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("rel", MODEL_SOURCES)
+def test_model_modules_import_nothing_foreign(rel):
+    assert imported_roots((PORT / rel).read_text()) & set(FOREIGN) == set()
+    assert reference_imports((PORT / rel).read_text()) == []
+
+
+def test_foreign_scan_sees_nested_imports():
+    src = "import torch\ndef f():\n    from safetensors.numpy import load_file\n    import jax.numpy\n"
+    assert imported_roots(src) & set(FOREIGN) == {"safetensors", "jax"}
 
 
 def test_import_scan_matches_only_the_reference():
