@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``cqs_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--phases kernels,e2e,scale,serve,neural]
+    python3 chip_smoke.py [--seed 0] [--phases kernels,e2e,scale,serve,neural,graph]
 
 Phases, each fatal on error (non-zero exit, no result line):
 
@@ -71,12 +71,30 @@ Phases, each fatal on error (non-zero exit, no result line):
    the same weights on the card (per-row cosine >= 0.99 on 64 chunks); the
    forward's time, tokens/s, share of the bf16 peak and peak memory at the
    index's shapes and at 512 x 2048, its kernel profile; the B=1 query
-   embedding.
+   embedding;
+8. graph: the graph ANN and the tiered index. A clustered 1,048,576 x 768
+   bf16 corpus made on the card (the recipe of
+   ``scripts/validate_graph_1m.py``) and 2,048 queries near its rows; their
+   exact top-10 through the split loop kernel (16 held against the plain
+   scan); an NN-descent graph (degree 32, 8 rounds; seconds split into
+   device refine and host reverse edges; peak memory); R@10 of the beam
+   search against exact at the default beam (640) and at beams 512 (>= 0.95)
+   and 1024 (>= 0.98), over all queries and over the first 256; the
+   search's wall time, device-busy time and
+   launches at B=1 and B=128; the exact kNN build at 196,608 rows through
+   the split kernel (one launch a 1,024-row block), its lists held slot by
+   slot against the plain build (>= 99.9% equal, every other slot a
+   near-tie within 1e-5); the engine on the repository corpus under
+   ``index_kind`` graph and tiered with every alpha at 1 (the ANN answers,
+   batched == solo, top-10 against the exact dense-only program), the watch
+   loop's add/edit/delete under tiered (no graph rebuild; the added
+   function found from the delta tier); one ``--worktree`` search and one
+   ``embed-2d`` through the CLI.
 
 The kernels' launch counters are zeroed before phase 4 and read after
 phase 5, zeroed again before phase 6 and read after it, and again around
-phase 7 (the split bf16 loop kernel must have launched from the socket
-path and from the neural path); a branch wrapper that
+phase 7 and phase 8 (the split bf16 loop kernel must have launched from
+the socket path, the neural path and the graph path); a branch wrapper that
 did not launch in phases 4-5 fails the run, and so
 does a split loop kernel that did not, a search of phase 4 whose solo or
 batched program did not launch the split kernel, a widening kernel that
@@ -837,11 +855,12 @@ def screened_program(torch, w, mode: str = "int8"):
 # -- each program's whole pool against the plain twins' program -----------------
 
 @contextlib.contextmanager
-def recorded_scans(plain: bool):
+def recorded_scans(plain: bool, record: bool = True):
     """Within the block every scan of a program (stage 1 of ``scan_topk``)
-    is recorded as (index, queries, mask, tile, vals, rows), and with
-    ``plain`` it runs the plain twin on the card in the kernel's place. The
-    package itself never makes that choice: this swaps the function here."""
+    is recorded as (index, queries, mask, tile, vals, rows) unless
+    ``record`` is false, and with ``plain`` it runs the plain twin on the
+    card in the kernel's place. The package itself never makes that choice:
+    this swaps the function here."""
     from cqs_tpu_torch.ops import topk
 
     real, log = topk.scan_tiles, []
@@ -852,7 +871,8 @@ def recorded_scans(plain: bool):
             vals, rows = twin(index, queries, mask, tile_n, m)
         else:
             vals, rows = real(index, queries, mask, tile_n, m, grouped)
-        log.append((index, queries, mask, tile_n, vals, rows))
+        if record:
+            log.append((index, queries, mask, tile_n, vals, rows))
         return vals, rows
 
     topk.scan_tiles = scan_tiles
@@ -1855,10 +1875,448 @@ def phase_neural(torch, dev, seed: int, report, smi: str, checkpoints=write_chec
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- phase 8: the graph ANN and tiered index ------------------------------------
+
+#: the graph phase's corpus: rows, width, queries, and the exact build's rows
+#: (just under ``GraphIndex.EXACT_BUILD_MAX``). A query whose cluster the beam
+#: never reaches finds none of its top-10, and at beam 512 4-6% of queries do,
+#: so R@10 over 256 queries spreads by about 0.01 (PERF.md, PR 9): 2,048
+#: queries hold it to the floors below, and the first 256 are reported too
+GRAPH_ROWS, GRAPH_DIM, GRAPH_QUERIES = 1 << 20, 768, 2048
+GRAPH_EXACT_ROWS = 196608
+#: (beam, iters) of the recall sweep at 1M: the default (640, 32) and the
+#: reference's validation points (``scripts/validate_graph_1m.py``); expand
+#: is ``GraphIndex.search``'s max(8, beam // 16); the least R@10 each must reach
+GRAPH_BEAMS = ((None, None, None), (512, 32, 0.95), (1024, 48, 0.98))
+#: a unique function for the watch loop's added file and the overlay's edit
+GRAPH_ADDED = '''"""Added to the tiered index's delta."""
+
+
+def jubilant_okapi_registrar(okapis):
+    """Register every jubilant okapi in the reserve's ledger."""
+    return len(okapis)
+'''
+GRAPH_DIRTY = '''
+
+def wistful_narwhal_cartographer(tusks):
+    """Chart the wistful narwhal's migration from its tusk readings."""
+    return tusks
+'''
+
+
+def graph_corpus(torch, dev, seed: int, n: int, d: int, queries: int):
+    """The recipe of ``scripts/validate_graph_1m.py`` on the card: 1,024
+    centers, rows = a center + 0.35 noise, L2-normalized, stored bf16 (made
+    in 65,536-row blocks); queries = a corpus row + 0.05 noise, normalized
+    (f32). Drawn from a generator of its own."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 524287)
+    centers = torch.randn(1024, d, generator=gen, device=dev)
+    mat = torch.empty((n, d), dtype=torch.bfloat16, device=dev)
+    for s in range(0, n, 65536):
+        e = min(n, s + 65536)
+        block = (centers[torch.randint(0, 1024, (e - s,), generator=gen, device=dev)]
+                 + 0.35 * torch.randn(e - s, d, generator=gen, device=dev))
+        mat[s:e] = (block / block.norm(dim=1, keepdim=True).clamp_min(1e-9)).to(torch.bfloat16)
+    rows = torch.randint(0, n, (queries,), generator=gen, device=dev)
+    q = mat[rows].float() + 0.05 * torch.randn(queries, d, generator=gen, device=dev)
+    return mat, q / q.norm(dim=1, keepdim=True).clamp_min(1e-9)
+
+
+def knn_lists_f64(torch, mat, degree: int, batch: int = 1024):
+    """``graph.knn_lists`` with every dot summed in float64 (exact for bf16
+    rows): the lists neither f32 sum order moves, to hold both builds to."""
+    import numpy as np
+
+    m64, out = mat.double(), []
+    n = mat.shape[0]
+    for s in range(0, n, batch):
+        e = min(n, s + batch)
+        idx = torch.sort(m64[s:e] @ m64.T, dim=1, descending=True,
+                         stable=True).indices[:, :degree + 1].cpu().numpy()
+        ordp = np.argsort(idx == np.arange(s, e)[:, None], axis=1, kind="stable")
+        out.append(np.take_along_axis(idx, ordp, axis=1)[:, :degree].astype(np.int32))
+    return np.concatenate(out)
+
+
+def pair_scores(torch, mat, i, j):
+    """f32 dots of the bf16 rows mat[i] and mat[j] (1-D index tensors)."""
+    return (mat[i].float() * mat[j].float()).sum(dim=1)
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def graph_engine_run(torch, dev, proj: Path, kind: str, report) -> None:
+    """The engine on the repository corpus with ``index_kind`` = ``kind`` and
+    every alpha at 1 (so each query is dense-only, the ANN's case): the ANN
+    is built on the card, answers the solo queries, a paused batcher burst
+    equals solo, and the top-10 is held against the exact dense-only
+    program. Under tiered, the watch loop then adds, edits and deletes a
+    file: the refresh stays incremental and the added function is found from
+    the delta tier."""
+    from cqs_tpu_torch.cli.context import CommandContext
+    from cqs_tpu_torch.daemon.batcher import QueryBatcher
+    from cqs_tpu_torch.daemon.watch import WatchLoop
+    from cqs_tpu_torch.index import GraphIndex, TieredIndex
+    from cqs_tpu_torch.ops.topk import LOOP_SPLIT
+    from cqs_tpu_torch.search.engine import SearchEngine
+    from cqs_tpu_torch.search.router import Category
+
+    calls = {"n": 0}
+    real = SearchEngine._ann_query
+
+    def counted(self, *a, **kw):
+        out = real(self, *a, **kw)
+        calls["n"] += out is not None
+        return out
+
+    env = {"CQST_INDEX_KIND": kind, **{f"CQST_ALPHA_{c.value.upper()}": "1.0" for c in Category}}
+    SearchEngine._ann_query = counted
+    ctx = ctx2 = None
+    out: dict = {}
+    try:
+        with knobs(env):
+            before = LOOP_SPLIT.launches
+            t0 = time.perf_counter()
+            ctx = CommandContext.create(str(proj), device=dev)
+            eng = ctx.engine
+            sync(torch, dev)
+            out["engine_load_s"] = time.perf_counter() - t0
+            want = GraphIndex if kind == "graph" else TieredIndex
+            if not isinstance(eng.ann, want) or eng.ann.count != eng.dense.count:
+                fail(f"graph[{kind}]: the engine built {type(eng.ann).__name__}, not {want.__name__}")
+            base = eng.ann if kind == "graph" else eng.ann.base
+            if not base.matrix.is_cuda and dev.type == "cuda":
+                fail(f"graph[{kind}]: the ANN's rows are not on the card")
+            out["build_launches"] = LOOP_SPLIT.launches - before
+            if dev.type == "cuda" and out["build_launches"] <= 0:
+                fail(f"graph[{kind}]: the exact graph build did not launch {LOOP_SPLIT.name}")
+            solo, ms = {}, []
+            for q in QUERIES:
+                res = eng.search(q)
+                solo[q] = [(h.row.id, h.score) for h in res.hits]
+                ms.append(res.elapsed_ms)
+                if not res.hits or res.alpha != 1.0:
+                    fail(f"graph[{kind}]: {q!r}: alpha {res.alpha}, {len(res.hits)} hits")
+            if calls["n"] == 0:
+                fail(f"graph[{kind}]: no query was answered by the ANN")
+            out["ann_answers"], out["search_ms"] = calls["n"], statistics.median(ms)
+            # the ANN's own top-10 against the exact scan of the dense index
+            ann_r = []
+            for q in QUERIES:
+                q_vec = eng._embed_query_cached(q)
+                got = eng.ann.search(q_vec, 10)[1]
+                got = set(got[0]) if kind == "tiered" else {eng.ann.ids[r] for r in got[0]}
+                want = set(eng.dense.rows_to_ids(eng.dense.search(q_vec, 10)[1])[0])
+                ann_r.append(len(got & want) / 10)
+            out["ann_r_at_10"] = float(statistics.mean(ann_r))
+            if out["ann_r_at_10"] < 0.95:
+                fail(f"graph[{kind}]: the ANN's R@10 against the exact dense scan is "
+                     f"{out['ann_r_at_10']:.4f}")
+            # the exact dense-only program on the same indexes
+            ann, eng.ann, eng._result_cache = eng.ann, None, {}
+            exact = {q: [h.row.id for h in eng.search(q).hits] for q in QUERIES}
+            eng.ann, eng._result_cache = ann, {}
+            out["top10_vs_exact"] = float(statistics.mean(
+                len({i for i, _ in solo[q][:10]} & set(exact[q][:10])) / max(1, len(exact[q][:10]))
+                for q in QUERIES))
+            ctx2 = CommandContext.create(str(proj), device=dev)
+            batcher = QueryBatcher(ctx2.engine)
+            try:
+                batcher.pause()
+                futs = [batcher.submit(q) for q in QUERIES]
+                batcher.resume()
+                batched = [f.result(timeout=120) for f in futs]
+            finally:
+                batcher.stop()
+            for q, res in zip(QUERIES, batched):
+                if [(h.row.id, h.score) for h in res.hits] != solo[q]:
+                    fail(f"graph[{kind}]: batched result of {q!r} differs from solo")
+            print(f"graph[{kind}]: engine with {type(eng.ann).__name__} over {eng.dense.count} "
+                  f"rows loaded in {out['engine_load_s']:.2f} s ({out['build_launches']} "
+                  f"{LOOP_SPLIT.name} launches); {out['ann_answers']} queries answered by the "
+                  f"ANN; batched == solo for {len(QUERIES)}; the ANN's R@10 against the exact "
+                  f"dense scan {out['ann_r_at_10']:.4f}; hits' top-10 against the exact "
+                  f"dense-only program's {out['top10_vs_exact']:.4f}; engine.search median "
+                  f"{out['search_ms']:.2f} ms")
+            if kind == "tiered":
+                loop = WatchLoop(ctx)
+                if loop.reconcile_once() != 0:
+                    fail("graph[tiered]: the first reconcile found changes")
+                (proj / "cqs_tpu" / "zz_okapi_module.py").write_text(GRAPH_ADDED)
+                edited = proj / "scripts" / "validate_graph_1m.py"
+                edited.write_text(edited.read_text() + "\n# edited\n")
+                (proj / "docs" / "graph_doomed.py").unlink()
+                base0 = eng.ann.base
+                t0 = time.perf_counter()
+                changed = loop.reconcile_once()
+                out["reconcile_s"] = time.perf_counter() - t0
+                if changed != 3 or eng.ann.base is not base0 or eng.ann.delta_count < 1:
+                    fail(f"graph[tiered]: reconcile gave {changed}; base rebuilt "
+                         f"{eng.ann.base is not base0}, delta {eng.ann.delta_count}")
+                hit = eng.search("jubilant okapi registrar").hits
+                if not hit or hit[0].row.name != "jubilant_okapi_registrar" or \
+                        hit[0].row.id not in eng.ann.delta.ids:
+                    fail(f"graph[tiered]: the added function was not found from the delta: "
+                         f"{[h.row.name for h in hit[:3]]}")
+                out["delta_rows"] = eng.ann.delta_count
+                print(f"graph[tiered]: reconcile of 3 changed files in {out['reconcile_s']:.2f} s "
+                      f"without a graph rebuild; the added function found from the delta "
+                      f"({eng.ann.delta_count} rows)")
+    finally:
+        SearchEngine._ann_query = real
+        for c in (ctx2, ctx):
+            if c is not None:
+                c.close()
+    report.setdefault("graph", {})[kind] = out
+
+
+def phase_graph(torch, dev, seed: int, report, smi: str, n: int = GRAPH_ROWS,
+                exact_rows: int = GRAPH_EXACT_ROWS, d: int = GRAPH_DIM,
+                queries: int = GRAPH_QUERIES):
+    """The graph ANN on the card: a clustered n x d corpus made there, its
+    exact top-10 through ``LOOP_SPLIT`` (16 queries against the plain scan),
+    an NN-descent graph (degree 32, 8 rounds) with R@10 against exact at the
+    default beam and at beams 512 and 1024, the beam search's time at B=1
+    and B=128 (wall, device-busy, launches), and the exact kNN build at
+    ``exact_rows`` rows through ``LOOP_SPLIT`` held slot by slot against the
+    plain build; then the engine on the repository corpus under
+    ``index_kind`` graph and tiered, and one ``--worktree`` search and one
+    ``embed-2d`` through the CLI."""
+    import numpy as np
+
+    from cqs_tpu_torch.cli.main import main
+    from cqs_tpu_torch.index import graph
+    from cqs_tpu_torch.ops import topk
+
+    out: dict = {"smi": smi, "n": n, "d": d}
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mat, q = graph_corpus(torch, dev, seed, n, d, queries)
+    sync(torch, dev)
+    out["corpus_s"] = time.perf_counter() - t0
+    mask = torch.ones(n, dtype=torch.int32, device=dev)
+
+    # -- exact ground truth through the split kernel, 16 queries held to plain
+    before = topk.LOOP_SPLIT.launches
+    t0 = time.perf_counter()
+    gt_v, gt = topk.scan_topk(mat, q, 10, mask, tile_n=2048, extraction="loop")
+    sync(torch, dev)
+    out["exact_s"] = time.perf_counter() - t0
+    if cuda and topk.LOOP_SPLIT.launches <= before:
+        fail(f"graph: the exact top-10 did not launch {topk.LOOP_SPLIT.name}")
+    pv, pr = topk.topk_plain(mat, q[:16], 10, mask)
+    if not torch.allclose(gt_v[:16], pv, rtol=RTOL, atol=ATOL):
+        fail("graph: the exact top-10's values differ from the plain scan")
+    diff = gt[:16] != pr
+    if diff.any():
+        qi = torch.arange(16, device=dev)[:, None].expand(16, 10)[diff]
+        qb = q[:16].to(torch.bfloat16).float()
+        a = (qb[qi] * mat[gt[:16][diff].long()].float()).sum(1)
+        b = (qb[qi] * mat[pr[diff].long()].float()).sum(1)
+        if not torch.all((a - b).abs() <= ATOL + RTOL * b.abs()):
+            fail("graph: the exact top-10's rows differ from the plain scan beyond near-ties")
+    gt = gt.cpu().numpy()
+    print(f"graph: {n} x {d} bf16 corpus made on the device in {out['corpus_s']:.1f} s; exact "
+          f"top-10 of {queries} queries in {out['exact_s']:.2f} s through "
+          f"{topk.LOOP_SPLIT.name}, 16 held against the plain scan "
+          f"({int(diff.sum())} near-tie swaps)")
+
+    # -- NN-descent build: device refine vs host reverse edges
+    host = {"s": 0.0}
+    real_rev = graph.add_reverse_edges
+
+    def timed_rev(nbrs, half=None):
+        t = time.perf_counter()
+        try:
+            return real_rev(nbrs, half)
+        finally:
+            host["s"] += time.perf_counter() - t
+
+    graph.add_reverse_edges = timed_rev
+    try:
+        t0 = time.perf_counter()
+        neighbors = graph.nn_descent_graph(mat, 32, rounds=8, mat_dev=mat, device=dev)
+        out["nnd_s"] = time.perf_counter() - t0
+    finally:
+        graph.add_reverse_edges = real_rev
+    out["nnd_reverse_edges_s"] = host["s"]
+    out["nnd_refine_s"] = out["nnd_s"] - host["s"]
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+    if neighbors.shape != (n, 32) or (neighbors == np.arange(n)[:, None]).any():
+        fail(f"graph: the NN-descent graph has shape {neighbors.shape} or self-edges")
+    print(f"graph: NN-descent (degree 32, 8 rounds) in {out['nnd_s']:.1f} s: device refine "
+          f"(with RNG draws and transfers) {out['nnd_refine_s']:.1f} s, host reverse edges "
+          f"{out['nnd_reverse_edges_s']:.1f} s; peak device memory "
+          f"{out['peak_gib'] or 0:.2f} GiB")
+
+    # -- beam search: recall against exact, then time at B=1 and B=128
+    g_dev = torch.from_numpy(neighbors.astype(np.int64)).to(dev)
+    recall = {}
+    for beam, iters, floor in GRAPH_BEAMS:
+        beam = beam or min(max(64, graph.default_itopk(n)), n)
+        iters = iters or max(4, int(1.6 * np.log2(max(n, 2))))
+        expand = max(8, beam // 16)
+        starts = torch.from_numpy(np.linspace(0, n - 1, beam).astype(np.int32)).to(dev)
+        _, rows = graph.graph_search(mat, g_dev, mask, q, starts, 10, iters, expand)
+        rows = rows.cpu().numpy()
+        per = np.array([len(set(rows[i]) & set(gt[i])) / 10 for i in range(queries)])
+        r = float(per.mean())
+        recall[beam] = {"iters": iters, "expand": expand, "r_at_10": r,
+                        "r_at_10_first_256": float(per[:256].mean()),
+                        "queries_with_none": int((per == 0).sum())}
+        if floor is not None and r < floor:
+            fail(f"graph: R@10 against exact {r:.4f} at beam {beam} is below {floor}")
+    out["recall"] = recall
+    beam0 = next(iter(recall))                            # the default beam
+    iters0, expand0 = recall[beam0]["iters"], recall[beam0]["expand"]
+    starts0 = torch.from_numpy(np.linspace(0, n - 1, beam0).astype(np.int32)).to(dev)
+    timing = {}
+    for b in (1, 128):
+        def search(b=b):
+            return graph.graph_search(mat, g_dev, mask, q[:b], starts0, 10, iters0, expand0)
+        search()
+        sync(torch, dev)
+        reps = 10 if b == 1 else 3
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            search()
+        sync(torch, dev)
+        wall = (time.perf_counter() - t0) / reps * 1e3
+        busy, by_kernel, launches, _ = device_busy(torch, search, calls=3) if cuda else (
+            None, {}, None, None)
+        timing[b] = {"wall_ms": wall, "ms_per_query": wall / b, "busy_ms": busy,
+                     "launches": launches}
+    out["search"] = timing
+    print(f"graph: R@10 against exact over {queries} queries (first 256; queries with none "
+          f"of their top-10): " + "; ".join(
+              f"beam {k} (iters {v['iters']}, expand {v['expand']}) {v['r_at_10']:.4f} "
+              f"({v['r_at_10_first_256']:.4f}; {v['queries_with_none']})"
+              for k, v in recall.items()))
+    print("graph: beam search at the default beam " + str(beam0) + ": " + "; ".join(
+        f"B={b}: {t['wall_ms']:.2f} ms wall ({t['ms_per_query']:.3f} ms a query), "
+        f"device-busy {t['busy_ms'] or 0:.2f} ms, {t['launches'] or 0:.0f} launches a call"
+        for b, t in timing.items()))
+    del g_dev
+
+    # -- the exact kNN build through the split kernel against the plain build
+    sub = mat[:exact_rows]
+    before = topk.LOOP_SPLIT.launches
+    t0 = time.perf_counter()
+    kern = graph.knn_lists(sub, 32, device=dev)
+    out["exact_build_s"] = time.perf_counter() - t0
+    out["exact_build_launches"] = topk.LOOP_SPLIT.launches - before
+    if cuda and out["exact_build_launches"] != -(-exact_rows // graph.KNN_BLOCK):
+        fail(f"graph: the exact build launched {topk.LOOP_SPLIT.name} "
+             f"{out['exact_build_launches']} times")
+    t0 = time.perf_counter()
+    with recorded_scans(plain=True, record=False):
+        plain = graph.knn_lists(sub, 32, device=dev)
+    out["plain_build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exact = knn_lists_f64(torch, sub, 32)
+    out["f64_build_s"] = time.perf_counter() - t0
+    diff = np.argwhere(kern != plain)
+    agree = 1.0 - len(diff) / kern.size
+    worst = 0.0
+    if len(diff):
+        i = torch.from_numpy(diff[:, 0]).to(dev)
+        a = pair_scores(torch, sub, i, torch.from_numpy(kern[diff[:, 0], diff[:, 1]]).to(dev))
+        b = pair_scores(torch, sub, i, torch.from_numpy(plain[diff[:, 0], diff[:, 1]]).to(dev))
+        worst = float((a - b).abs().max())
+        if worst > 1e-5:
+            fail(f"graph: a kernel-built neighbor differs from the plain build by {worst} "
+                 f"in score (not a near-tie)")
+    # each f32 build swaps near-ties against the float64 lists by its own sum
+    # order: the kernel's must swap no more than the plain build's
+    k_exact = float((kern == exact).mean())
+    p_exact = float((plain == exact).mean())
+    if k_exact < max(0.999, p_exact - 0.0005):
+        fail(f"graph: the kernel-built lists agree with the float64 lists in {k_exact:.6f} of "
+             f"slots, the plain build's in {p_exact:.6f}")
+    full = float((graph.add_reverse_edges(kern) == graph.add_reverse_edges(plain)).mean())
+    out["exact_build"] = {"rows": exact_rows, "slot_agreement": agree, "differing": len(diff),
+                          "worst_score_gap": worst, "graph_agreement": full,
+                          "kernel_vs_f64": k_exact, "plain_vs_f64": p_exact}
+    print(f"graph: exact kNN build at {exact_rows} x {d} in {out['exact_build_s']:.2f} s "
+          f"({out['exact_build_launches']} {topk.LOOP_SPLIT.name} launches; plain build "
+          f"{out['plain_build_s']:.2f} s, float64 build {out['f64_build_s']:.2f} s): slot "
+          f"agreement with the plain build {agree:.6f} ({len(diff)} slots differ, every one a "
+          f"near-tie, score gap <= {worst:.2e}), after reverse edges {full:.6f}; with the "
+          f"float64 lists: kernel {k_exact:.6f}, plain {p_exact:.6f}")
+    # one block of the build, timed (these launches are not the path's)
+    if cuda:
+        counted = topk.LOOP_SPLIT.launches
+        block, m = sub[:graph.KNN_BLOCK], 33
+        ms = cuda_ms(lambda: topk.LOOP_SPLIT(sub, block, mask[:exact_rows], 2048, m), 20)
+        plain_ms = cuda_ms(lambda: topk.scan_topk_plain_loop(sub, block, mask[:exact_rows],
+                                                             2048, m), 5)
+        lib_ms = cuda_ms(lambda: torch.matmul(block, sub.T), 20)
+        topk.LOOP_SPLIT.launches = counted
+        bound = bound_ms("bf16", exact_rows, d, graph.KNN_BLOCK, 2048, m)
+        out["build_block"] = {"n": exact_rows, "d": d, "b": graph.KNN_BLOCK, "tile": 2048,
+                              "m": m, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                              "bound_ms": bound[0], "bound_by": bound[1]}
+        print(f"graph: one build block ({exact_rows} x {d}, B={graph.KNN_BLOCK}, tile 2048, "
+              f"m {m}): {topk.LOOP_SPLIT.name} {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"torch.matmul of the scores {lib_ms:.3f} ms, bound {bound[0]:.3f} ms by "
+              f"{bound[1]}; {smi}")
+    del mat, q, sub, mask
+
+    # -- the engine on the repository corpus, then the overlay and embed-2d
+    tmp = Path(tempfile.mkdtemp(prefix="cqs_graph_"))
+    try:
+        proj = tmp / "corpus"
+        proj.mkdir()
+        copy_corpus(proj)
+        (proj / "docs" / "graph_doomed.py").write_text(DOOMED_FILE)
+        rc, env, _ = run_cli(main, ["index", "--path", str(proj), "--device", str(dev), "--json"])
+        if rc != 0 or env is None:
+            fail(f"graph: index exited {rc}")
+        for kind in ("graph", "tiered"):
+            graph_engine_run(torch, dev, proj, kind, report)
+        # a dirty file: the worktree overlay finds its new function, and the
+        # index without it does not
+        dirty = proj / "cqs_tpu" / "index" / "tiered.py"
+        dirty.write_text(dirty.read_text() + GRAPH_DIRTY)
+        rc, env, ms = run_cli(main, ["wistful narwhal cartographer", "--worktree", "--path",
+                                     str(proj), "--device", str(dev), "--json"])
+        names = [h["name"] for h in (env or {}).get("results", [])]
+        if rc != 0 or not names or names[0] != "wistful_narwhal_cartographer":
+            fail(f"graph: the --worktree search gave rc {rc} and {names[:3]}")
+        rc, env, _ = run_cli(main, ["wistful narwhal cartographer", "--path", str(proj),
+                                    "--device", str(dev), "--json"])
+        if rc != 0 or "wistful_narwhal_cartographer" in [h["name"] for h in env["results"]]:
+            fail("graph: a search without --worktree found the uncommitted function")
+        out["worktree_cli_ms"] = ms
+        rc, _, ms = run_cli(main, ["embed-2d", "--path", str(proj), "--device", str(dev)])
+        from cqs_tpu_torch.store import Store
+
+        st = Store.open(proj / ".cqs-tpu", readonly=True)
+        try:
+            placed, embedded = st.db.execute(
+                "SELECT COUNT(umap_x), COUNT(embedding) FROM chunks").fetchone()
+        finally:
+            st.close()
+        if rc != 0 or placed == 0 or placed != embedded:
+            fail(f"graph: embed-2d exited {rc} and placed {placed} of {embedded} chunks")
+        out["embed_2d"] = {"chunks": placed, "cli_ms": ms}
+        print(f"graph: --worktree search through the CLI found the uncommitted function "
+              f"({out['worktree_cli_ms']:.0f} ms); embed-2d placed {placed} chunks "
+              f"({ms:.0f} ms); {smi}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report.setdefault("graph", {}).update(out)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="kernels,e2e,scale,serve,neural")
+    ap.add_argument("--phases", default="kernels,e2e,scale,serve,neural,graph")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not (REPO / "cqs_tpu_torch" / "__init__.py").is_file():
@@ -1929,6 +2387,17 @@ def main() -> int:
         print(f"launches on the neural path: {neural_launches}")
         if LOOP_SPLIT.launches == 0:
             fail(f"kernel {LOOP_SPLIT.name} was not launched on the neural path")
+    # the graph ANN's path: zeroed just before, read just after
+    for k in IMPLS:
+        k.launches = 0
+    if "graph" in phases:
+        phase_graph(torch, dev, args.seed, report, smi)
+    torch.cuda.synchronize()
+    graph_launches = {k.name: k.launches for k in IMPLS}
+    if "graph" in phases:
+        print(f"launches on the graph path: {graph_launches}")
+        if LOOP_SPLIT.launches == 0:
+            fail(f"kernel {LOOP_SPLIT.name} was not launched on the graph path")
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")]
     if loaded:
         fail(f"JAX modules were imported: {loaded[:5]}")
@@ -1948,10 +2417,11 @@ def main() -> int:
         kernels.append({"name": k.name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces,
                         "launches": (launches[k.name] + serve_launches[k.name]
-                                     + neural_launches[k.name]),
+                                     + neural_launches[k.name] + graph_launches[k.name]),
                         "main_path_launches": launches[k.name],
                         "daemon_path_launches": serve_launches[k.name],
                         "neural_path_launches": neural_launches[k.name],
+                        "graph_path_launches": graph_launches[k.name],
                         "kernel_phase_launches": kernel_phase[k.name],
                         "max_abs_err": report.get("errs", {}).get(k.name),
                         "shape": dict(zip(("n", "d", "tile", "b", "m"), case)),

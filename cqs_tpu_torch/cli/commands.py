@@ -107,7 +107,7 @@ def cmd_search(ctx: CommandContext, args) -> int:
         res = eng.search(args.query, limit=args.limit, path_filter=args.path_filter,
                          lang_filter=args.lang, alpha_override=args.alpha,
                          chunk_types=chunk_types, rerank=args.rerank,
-                         include_docs=args.include_docs)
+                         use_overlay=args.worktree, include_docs=args.include_docs)
     finally:
         if args.threshold is not None:
             if prior is None:
@@ -448,6 +448,14 @@ def cmd_serve(ctx: CommandContext, args) -> int:
     return 0
 
 
+def cmd_embed_2d(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.ops.project2d import store_projection
+
+    n = store_projection(ctx.store, method=args.method, device=ctx.device)
+    _print(f"projected {n} chunks to 2-D ({args.method})")
+    return 0
+
+
 #: command -> handler: what the port serves. ``cli/main.py`` exits 2 for a
 #: reference command that has no entry here.
 HANDLERS = {
@@ -458,4 +466,5 @@ HANDLERS = {
     "stats": cmd_stats, "status": cmd_status,
     "ping": cmd_ping, "refresh": cmd_refresh, "watch": cmd_watch,
     "batch": cmd_batch, "mcp": cmd_mcp, "serve": cmd_serve,
+    "embed-2d": cmd_embed_2d,
 }

@@ -78,6 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp = sub.add_parser("search", help="search (also the bare default)")
     sp.add_argument("query")
     sp.add_argument("-k", "--limit", type=int, default=10)
+    sp.add_argument("--worktree", action="store_true",
+                    help="overlay uncommitted edits (ephemeral delta index)")
     sp.add_argument("--lang", help="language filter")
     sp.add_argument("--filter", dest="path_filter", help="path glob filter")
     sp.add_argument("--alpha", type=float, help="override fusion alpha")
@@ -143,6 +145,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp = sub.add_parser("serve", help="local HTTP API + web UI")
     sp.add_argument("--port", type=int, default=7777)
     sp.add_argument("--host", default="127.0.0.1")
+    sp = sub.add_parser("embed-2d", help="compute 2-D projection coords for the cluster view")
+    sp.add_argument("--method", default="auto", choices=["auto", "pca", "umap"])
     return p
 
 
@@ -188,8 +192,9 @@ def dispatch(args) -> int:
     try:
         # read commands go to a live daemon first: its warm handles beat an
         # in-process cold start; without one (or on an error answer) the
-        # command runs here
-        if args.command in FORWARDABLE:
+        # command runs here. A --worktree search stays here: the overlay is
+        # this worktree's state, which the daemon's request does not carry
+        if args.command in FORWARDABLE and not getattr(args, "worktree", False):
             resp = request(ctx.index_dir, args.command, translate_args(args.command, args))
             if resp is not None and "error" not in resp:
                 if args.json:

@@ -201,6 +201,10 @@ class DenseIndex:
         vals, rows = vals.cpu().numpy(), rows.cpu().numpy()
         return vals, np.where(vals > -1e30, rows, -1)
 
+    def rows_to_ids(self, rows: np.ndarray) -> list[list[str]]:
+        """[B, k] rows -> the ids of each query's valid rows."""
+        return [[self.ids[r] for r in row if 0 <= r < self.count] for row in np.atleast_2d(rows)]
+
     # -- mutation ----------------------------------------------------------
 
     def append(self, new_ids: list[str], vecs: np.ndarray) -> None:
@@ -248,6 +252,14 @@ class DenseIndex:
             for r in rows:
                 self.ids[r] = ""
         return len(rows)
+
+    def live_rows(self) -> tuple[list[str], np.ndarray]:
+        """(ids, f32 rows) of the rows not tombstoned (for tier folds and
+        graph builds)."""
+        keep = [i for i, cid in enumerate(self.ids) if cid]
+        if not keep:
+            return [], np.zeros((0, self.dim), np.float32)
+        return [self.ids[i] for i in keep], self._host[keep]
 
     # -- persistence (byte-compatible with cqs_tpu) -------------------------
 

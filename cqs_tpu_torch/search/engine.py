@@ -29,9 +29,15 @@ to indexes another refresh swapped in meanwhile. It is taken before
 ``index_lock``, never inside it, and no query takes it.
 
 The opt-in cross-encoder rerank (``_rerank``) runs the port's
-``CrossEncoderReranker`` on the engine's device. Not on this slice (they
-raise or are absent): the worktree overlay, the ANN/graph tiers, mesh
-sharding and tiered serving.
+``CrossEncoderReranker`` on the engine's device. The ANN tier (knob
+``index_kind``: ``graph`` = ``GraphIndex``, ``tiered`` = ``TieredIndex``,
+built beside the dense index on the same device) answers dense-only,
+unfiltered queries on the dense index; a refresh tombstones its rows and
+inserts into the tiered delta, or rebuilds a plain graph, under the same two
+locks. The worktree overlay (``search(..., use_overlay=True)``) masks the
+dirty files' rows and merges hits from an ephemeral ``DenseIndex`` of their
+current content (``store/overlay.py``). Not ported (they raise or are
+absent): mesh sharding and tiered serving.
 """
 
 from __future__ import annotations
@@ -59,7 +65,7 @@ from cqs_tpu_torch.store import QueryCache, Store
 from cqs_tpu_torch.store.store import ChunkRow
 from cqs_tpu_torch.utils.trace import get_tracer, span
 from cqs_tpu_torch.device import resolve_device
-from cqs_tpu_torch.index import DenseIndex, SpladeIndex
+from cqs_tpu_torch.index import DenseIndex, GraphIndex, SpladeIndex, TieredIndex
 from cqs_tpu_torch.models import Embedder, SpladeEncoder
 from cqs_tpu_torch.search.program import (
     _scan_tile, dense_query, hybrid_query, hybrid_query_batch_q8, hybrid_query_batch_sk8,
@@ -74,7 +80,7 @@ SPLADE_FILE = "splade.npz"
 CENTROIDS_FILE = "classifier_centroids.json"
 
 #: knob -> value the slice supports; anything else is a path not yet ported
-_UNPORTED_KNOBS = {"index_kind": "exact", "mesh_shards": 0}
+_UNPORTED_KNOBS = {"mesh_shards": 0}
 
 
 def bf16_extraction(capacity: int, batch: int, knob: str = "grouped",
@@ -181,6 +187,9 @@ class SearchEngine:
         self.dense: DenseIndex | None = None
         self.dense_base: DenseIndex | None = None
         self.sparse: SpladeIndex | None = None
+        #: optional ANN tier for dense-only queries (``index_kind`` knob)
+        self.ann: GraphIndex | TieredIndex | None = None
+        self._overlay = None
         #: held by a refresh while it mutates or swaps the indexes, and by a
         #: query from its index pick to its program's results (module docstring)
         self.index_lock = threading.RLock()
@@ -227,14 +236,32 @@ class SearchEngine:
                 base = self._load_or_build_dense(DENSE_BASE_FILE, base=True)
             if self.splade is not None and not self.lim.disable_splade:
                 sparse = self._load_or_build_sparse(dense)
+            ann = self._maybe_build_ann(dense)
             with self.index_lock:
                 self.dense, self.dense_base, self.sparse = dense, base, sparse
+                self.ann = ann
                 self._row_of = dense.row_of if dense else {}
                 self._result_cache = {}
                 self.index_generation += 1
             # pre-warm the host lexical index off-thread (lexical tier only)
             if self.embedder.preset.lexical_tier and self.lim.host_lexical:
                 self._legs_pool.submit(self._get_host_lex)
+
+    def _maybe_build_ann(self, dense: DenseIndex | None = None):
+        """The optional ANN tier over ``dense`` (default: the serving dense
+        index) for dense-only queries (``index_kind`` knob, ``engine.py:393``):
+        graph = the kNN-graph beam index, tiered = a graph base plus an
+        exact-scan delta that takes incremental inserts; None for ``exact``
+        or an empty index. Built from the index's live rows on the engine's
+        device."""
+        dense = self.dense if dense is None else dense
+        kind = self.lim.index_kind
+        if kind not in ("graph", "tiered") or dense is None or not dense.count:
+            return None
+        ids, mat = dense.live_rows()
+        if kind == "graph":
+            return GraphIndex.build(ids, mat, dense.stamp, device=self.device)
+        return TieredIndex.build(ids, mat, dense.stamp, device=self.device)
 
     def _load_or_build_dense(self, filename: str, base: bool) -> DenseIndex | None:
         kind = "dense_base" if base else "dense"
@@ -306,7 +333,9 @@ class SearchEngine:
         store's token moved when the store was written, before this refresh,
         and results computed in between came from the old rows; a query
         still in flight sees ``index_generation`` move and does not cache its
-        result. The whole refresh runs under ``refresh_lock``, so the delta
+        result. The ANN tier follows the dense index: vanished ids are
+        tombstoned in it, new rows go to a tiered index's delta, and a plain
+        graph is rebuilt. The whole refresh runs under ``refresh_lock``, so the delta
         is worked out on the indexes it is applied to; the mutations run
         under ``index_lock`` (module docstring)."""
         with self.refresh_lock:
@@ -356,15 +385,21 @@ class SearchEngine:
                     self.dense_base.remove(gone)
                 if self.sparse is not None:
                     self.sparse.remove(gone)
+                if self.ann is not None:
+                    self.ann.remove(gone)
             if ordered:
-                self.dense.append(ordered, np.stack(
-                    [np.frombuffer(vec_map[c][0], dtype="<f4") for c in ordered]))
+                vecs = np.stack([np.frombuffer(vec_map[c][0], dtype="<f4") for c in ordered])
+                self.dense.append(ordered, vecs)
                 # the base index numbers its rows on its own: keep it
                 # reconciled too, or filtered base queries mask the wrong rows
                 base_ids = [cid for cid in ordered if cid in base_map]
                 if base_ids:
                     self.dense_base.append(base_ids, np.stack(
                         [np.frombuffer(base_map[c][0], dtype="<f4") for c in base_ids]))
+                if isinstance(self.ann, TieredIndex):
+                    self.ann.insert(ordered, vecs)          # the exact-scan delta tier
+                elif self.ann is not None:
+                    self.ann = self._maybe_build_ann()      # a plain graph: rebuild
                 if self.sparse is not None:
                     T = self.sparse.T
                     sp_ids = np.zeros((len(ordered), T), np.int32)
@@ -419,9 +454,9 @@ class SearchEngine:
         """Default search is code-only (section/module/config chunks are
         excluded unless ``include_docs`` or a ``chunk_types`` filter names
         them), as in the reference. ``meta["device_ms"]`` is the host-clock
-        time of the device program including its result transfer."""
-        if use_overlay:
-            raise NotImplementedError("the worktree overlay is not yet ported (ROADMAP)")
+        time of the device program including its result transfer.
+        ``use_overlay`` masks the rows of files edited since they were indexed
+        and merges hits from an ephemeral index of their current content."""
         t0 = time.perf_counter()
         if self.dense is None:
             self.load_or_build_indexes()
@@ -434,6 +469,17 @@ class SearchEngine:
             return cached
         cls = classify_query(query)
         meta: dict = {}
+
+        # worktree overlay: dirty files' rows are stale; their origins are
+        # masked and hits from the ephemeral delta index merged, with a 2x
+        # over-fetch while it is active
+        overlay_entry = None
+        limit_fetch = limit
+        if use_overlay and self.root is not None:
+            overlay_entry = self._get_overlay()
+            if overlay_entry is not None:
+                limit_fetch = limit * 2
+                meta["worktree_overlay"] = len(overlay_entry.dirty_origins)
 
         # NameOnly short-circuit: an exact name match wins outright; partial
         # FTS name hits fall through to the full hybrid
@@ -513,7 +559,9 @@ class SearchEngine:
                 cands.append(c)
 
         hits = self._host_stage(query, cls, cands, ctx, limit, q_vec, index,
-                                legs_future, full_rrf, meta, rerank=rerank)
+                                legs_future, full_rrf, meta,
+                                overlay_entry=overlay_entry,
+                                limit_fetch=limit_fetch, rerank=rerank)
         meta["pool"] = pool
         meta["centroid_rerouted"] = cls.rerouted_by_centroid
         res = SearchResult(hits, cls.category.value, cls.strategy.value, alpha,
@@ -526,9 +574,10 @@ class SearchEngine:
                       alpha: float, pool: int, fmask: np.ndarray | None,
                       code_only: bool = False):
         """The device program for one query: the hybrid program when the
-        sparse index is row-aligned with ``index`` and alpha < 1, else the
-        dense-only program. Returns host numpy (fused, rows, dense leg,
-        sparse leg or None)."""
+        sparse index is row-aligned with ``index`` and alpha < 1; else the
+        ANN tier when there is one, the query is unfiltered and ``index`` is
+        the dense index; else the exact dense-only program. Returns host numpy
+        (fused, rows, dense leg, sparse leg or None)."""
         code = self._code_mask(index) if code_only else None
         cmask = fmask
         if code is not None:
@@ -580,10 +629,41 @@ class SearchEngine:
                                                self.lim.scan_q8_min_rows))
                 out = tuple(x[None] for x in out)
             return tuple(x[0].cpu().numpy() for x in out)
+        if self.ann is not None and fmask is None and index is self.dense:
+            ann = self._ann_query(self.ann, q_vec, pool, code)
+            if ann is not None:
+                return ann
         vals, rows = dense_query(index.matrix, valid, q_t, pool)
         vals = vals.cpu().numpy()
         return vals, rows.cpu().numpy(), vals, None
 
+
+    def _ann_query(self, ann, q_vec: np.ndarray, pool: int, code: np.ndarray | None):
+        """The ANN branch of ``_device_query`` (``engine.py:1519``): the
+        tier's top hits (chunk ids from a tiered index, graph rows from a
+        graph) mapped to the dense index's rows; the graph walks every row,
+        so non-code rows are dropped here under the code-only default.
+        Padded to ``pool`` with row -1 and -inf; None for an empty tier."""
+        k_eff = min(pool, ann.count) if ann.count else 0
+        if not k_eff:
+            return None
+        if isinstance(ann, TieredIndex):
+            vals, id_lists = ann.search(q_vec, k_eff)
+            rows = np.array([self._row_of.get(cid, -1) for cid in id_lists[0]]
+                            + [-1] * (k_eff - len(id_lists[0])), np.int32)
+        else:
+            vals, grows = ann.search(q_vec, k_eff)
+            rows = np.array([self._row_of.get(ann.ids[r], -1) if 0 <= r < ann.count else -1
+                             for r in grows[0]], np.int32)
+        if code is not None:
+            rows = np.where((rows >= 0) & (rows < len(code))
+                            & (code[np.clip(rows, 0, len(code) - 1)] == 0), -1, rows)
+        vals = np.atleast_2d(np.asarray(vals, np.float32))[0, :k_eff]
+        pad = pool - rows.shape[0]
+        if pad > 0:
+            rows = np.pad(rows, (0, pad), constant_values=-1)
+            vals = np.pad(vals, (0, pad), constant_values=-np.inf)
+        return vals, rows, vals, None
 
     # -- host stages, verbatim from the reference engine ----------------------
 
@@ -1251,6 +1331,45 @@ class SearchEngine:
                     cands.append(c)
                     have.add(rid)
         return resolved
+
+    def _get_overlay(self):
+        from cqs_tpu_torch.store.overlay import WorktreeOverlay
+
+        if self._overlay is None:
+            self._overlay = WorktreeOverlay(self.root, self.store, self.embedder,
+                                            device=self.device)
+        try:
+            return self._overlay.current()
+        except Exception as e:   # an unreadable worktree must not break search
+            log.warning("worktree overlay failed: %s", e)
+            return None
+
+    def _merge_overlay(self, cands, entry, q_vec, ctx, limit_fetch):
+        """Mask stale parent rows (dirty origins) and merge overlay hits,
+        scored through the same boost pipeline."""
+        kept = [c for c in cands if c.row.origin not in entry.dirty_origins]
+        if entry.index.count:
+            vals, rows = entry.index.search(q_vec[None, :], k=min(limit_fetch, entry.index.count))
+            for v, r in zip(vals[0], rows[0]):
+                if r < 0:
+                    continue
+                row = entry.rows.get(entry.index.ids[r])
+                if row is None:
+                    continue
+                if getattr(ctx, "code_only", False):
+                    from cqs_tpu_torch.parser.types import NON_CODE_TYPES
+
+                    eff = row
+                    if row.parent_id:      # window: classify by parent
+                        eff = entry.rows.get(row.parent_id) or row
+                    if eff.chunk_type in NON_CODE_TYPES:
+                        continue
+                c = Candidate(row=row, fused=float(v), dense=float(v))
+                c.boosts["overlay"] = 0.0
+                if score_candidate(c, ctx):
+                    kept.append(c)
+        kept.sort(key=lambda c: (-c.final, c.row.id))
+        return kept
 
     def _alpha_overrides(self) -> dict[str, float]:
         """Config overrides, seeded with lexical-tier adjustments when the

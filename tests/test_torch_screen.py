@@ -218,7 +218,7 @@ def test_engine_runs_the_selected_program(tmp_project, monkeypatch, route):
         ctx.close()
 
 
-@pytest.mark.parametrize("knob,value", [("CQST_INDEX_KIND", "graph"), ("CQST_MESH_SHARDS", "2")])
+@pytest.mark.parametrize("knob,value", [("CQST_MESH_SHARDS", "2")])
 def test_unported_knobs_still_raise(tmp_project, monkeypatch, knob, value):
     monkeypatch.setenv(knob, value)
     ctx = CommandContext.create(str(tmp_project), device="cpu")

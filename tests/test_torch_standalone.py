@@ -80,6 +80,7 @@ PORTED = (
     "daemon/serve.py",
     "models/bert.py", "models/gemma.py", "models/hybrid.py", "models/loader.py",
     "models/reranker.py",
+    "index/graph.py", "index/tiered.py", "store/overlay.py", "ops/project2d.py",
 )
 
 #: The one copy that differs from its original, ``store/store.py``, and all
@@ -165,7 +166,8 @@ def reference_imports(source: str) -> list[str]:
 
 
 PORT_SOURCES = sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py")
-                      if "_build" not in p.parts) + ["chip_smoke.py", "scripts/torch_ab.py"]
+                      if "_build" not in p.parts) + ["chip_smoke.py", "scripts/torch_ab.py",
+                                                     "scripts/torch_graph_recall.py"]
 
 
 @pytest.mark.parametrize("rel", PORT_SOURCES)
