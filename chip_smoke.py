@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``cqs_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--phases kernels,e2e,scale,serve,neural,graph]
+    python3 chip_smoke.py [--seed 0] [--phases kernels,e2e,scale,serve,neural,graph,train]
 
 Phases, each fatal on error (non-zero exit, no result line):
 
@@ -89,12 +89,31 @@ Phases, each fatal on error (non-zero exit, no result line):
    batched == solo, top-10 against the exact dense-only program), the watch
    loop's add/edit/delete under tiered (no graph rebuild; the added
    function found from the delta tier); one ``--worktree`` search and one
-   ``embed-2d`` through the CLI.
+   ``embed-2d`` through the CLI;
+9. train: the training path on the repository corpus through the CLI:
+   ``train-data --source all --max 2000 --engine-negatives 2`` and the
+   teacher pass (``train-distill --labels-only`` over a pool written from
+   the pairs, 64 queries held out as a gate), both through the engine and
+   the split kernel at width 256; ``train-distill`` at the FINAL recipe of
+   ``docs/trained-tier.md`` (B 16, H 384, I 768, K 16, 300 steps, the gate
+   probe's R@1/5/20), ``train`` at the r3a recipe (H 384, 6 layers, I 1536,
+   seq 128, B 128, 2 negatives a pair, 100 steps), ``train-reranker`` (50
+   steps) and a hybrid ``train`` (20 steps): every loss finite, the mean of
+   the last 20 (or half a shorter run) below the first's, the hybrid's
+   frozen scales still [1.0, 0.3]; the distilled checkpoint as slot
+   ``distilled`` (``cqs-mini``) indexed through the CLI and served as the
+   tier of ``TieredServing``: the tier answers, a batcher burst equals solo,
+   the split kernel launches at width 384; three f32 ``DistillTrainer``
+   steps on the card against the CPU from the same parameters; each
+   trainer's step time (forward, backward, optimizer), sequences/s,
+   tokens/s, share of the bf16 peak, peak memory and profile (printed, not
+   checked).
 
 The kernels' launch counters are zeroed before phase 4 and read after
 phase 5, zeroed again before phase 6 and read after it, and again around
-phase 7 and phase 8 (the split bf16 loop kernel must have launched from
-the socket path, the neural path and the graph path); a branch wrapper that
+phase 7, phase 8 and phase 9 (the split bf16 loop kernel must have launched
+from the socket path, the neural path, the graph path and the train path); a
+branch wrapper that
 did not launch in phases 4-5 fails the run, and so
 does a split loop kernel that did not, a search of phase 4 whose solo or
 batched program did not launch the split kernel, a widening kernel that
@@ -539,6 +558,16 @@ def phase_kernels(torch, dev, rng, seed, report):
             timed(LOOP_SPLIT, index, q, mask, 2048, m, 100)
             timed(LOOP_SPLIT_I8, index8, q8, mask, 2048, m, 100)
         del index, index8, mask
+    # width 384 (the distilled tier's, cqs-mini at H 384): the bf16 split
+    # kernel at the repository corpus (4,096 rows, k 64), B 1 and 16 (a
+    # daemon batch of 9-16 queries on the tier)
+    gen = torch.Generator(device=dev).manual_seed(seed + 4096 + 384)
+    index = torch.randn(4096, 384, device=dev, generator=gen).to(torch.bfloat16)
+    mask = (torch.rand(4096, device=dev, generator=gen) > 0.02).to(torch.int32)
+    for b in (1, 16):
+        q = torch.randn(b, 384, device=dev, generator=gen).to(torch.bfloat16)
+        timed(LOOP_SPLIT, index, q, mask, 2048, 64, 100)
+    del index, mask
     # int8 shapes: q8/sk8 at the repository corpus (k 64, the batcher's
     # rungs) and 65,536 rows (k 32); at 1,048,576 rows the q8 dense (x 256) and sketch (x 1024) scans
     # at tile 2048, sk8's sketch scan at tile 4096, B 1/8/128, k 4/16, and
@@ -575,12 +604,14 @@ def phase_kernels(torch, dev, rng, seed, report):
     print("kernels: main-path shapes ok; times (ms, CUDA events, kernel vs plain, and vs "
           "the template in turns; library: torch._int_mm or torch.matmul, the score product "
           "only, not the same function):")
+    kinds = {k.name: k.kind for k in IMPLS}
     for t in timings:
         lib = f"  library {t['library_ms']:9.4f}" if t["library_ms"] is not None else ""
         riv = f"  {t['rival']} {t['rival_ms']:9.4f}" if t["rival"] else ""
+        bound = bound_ms(kinds[t["kernel"]], t["n"], t["d"], t["b"], t["tile"], t["m"])
         print(f"  {t['kernel']:26s} n={t['n']:8d} d={t['d']:5d} tile={t['tile']:5d} "
               f"b={t['b']:4d} m={t['m']:3d}  kernel {t['ms']:9.4f}  plain {t['plain_ms']:9.4f}"
-              f"{lib}{riv}")
+              f"  bound {bound[0]:9.4f} ({bound[1]}){lib}{riv}")
     for name, err in errs.items():
         print(f"kernels: {name} max |err| vs plain {err:.3g}")
     report["errs"] = errs
@@ -2313,10 +2344,409 @@ def phase_graph(torch, dev, seed: int, report, smi: str, n: int = GRAPH_ROWS,
     report.setdefault("graph", {}).update(out)
 
 
+# -- phase 9: the training path and the distilled tier --------------------------
+
+#: the train phase's command lines (docs/trained-tier.md): the FINAL
+#: distillation recipe (:84-90, its repro :138-156), the contrastive recipe
+#: of checkpoint r3a (:180), the cross-encoder at its command defaults, the
+#: hybrid at ``TrainConfig`` defaults
+TRAIN_RECIPES = {
+    "distill": ["--steps", "300", "--batch", "16", "--hidden-size", "384",
+                "--intermediate-size", "768", "--cands", "16"],
+    "contrastive": ["--steps", "100", "--batch", "128", "--hidden-size", "384",
+                    "--num-layers", "6", "--intermediate-size", "1536", "--seq-len", "128",
+                    "--negatives-per", "2"],
+    "reranker": ["--steps", "50"],
+    "hybrid": ["--family", "hybrid", "--steps", "20"],
+}
+#: four e2e queries (the default tier) and four for the tier: negation
+#: queries run the tier's hybrid program (tier_categories defaults to
+#: identifier_lookup and negation; identifier lookups take the name-only
+#: path, no scan)
+TIER_QUERIES = QUERIES[:4] + ["not the store upsert", "search without the daemon",
+                              "tokenize without the native library", "DistillBatcher"]
+#: H100 SXM bf16 dense tensor-core peak (the share a training step reaches)
+BF16_PEAK = 989e12
+
+
+def run_cli_text(main, argv) -> tuple[int, str, float]:
+    """A CLI call's exit code, standard output and host milliseconds."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, out.getvalue(), (time.perf_counter() - t0) * 1e3
+
+
+def write_pool(proj: Path, pairs_path: Path, pool: Path, gate: Path, held: int) -> int:
+    """A v3-format labeled pool from mined pairs (query -> the positive's
+    origin and name), its first ``held`` queries a held-out gate file.
+    Returns the pool's size."""
+    from cqs_tpu_torch.store import Store
+    from cqs_tpu_torch.train.data import load_pairs
+
+    store = Store.open(proj / ".cqs-tpu", slot="default", readonly=True)
+    try:
+        qs, seen = [], set()
+        for p in load_pairs(pairs_path):
+            row = store.get_chunk(p.positive_id) if p.positive_id else None
+            if row is None or p.query in seen:
+                continue
+            seen.add(p.query)
+            qs.append({"query": p.query,
+                       "gold_chunk": {"origin": row.origin, "name": row.name.split("#w")[0]}})
+    finally:
+        store.close()
+    gate.write_text(json.dumps({"queries": qs[:held]}))
+    pool.write_text(json.dumps({"queries": qs[held:]}))
+    return len(qs) - held
+
+
+def check_losses(name: str, log: Path, steps: int) -> dict:
+    """Every loss of ``<out>/train_log.jsonl`` finite, and the mean of the
+    last n below the mean of the first n (n = 20, or half a shorter run)."""
+    import math
+
+    rows = [json.loads(ln) for ln in log.read_text().splitlines()]
+    losses = [r["loss"] for r in rows]
+    if len(losses) != steps:
+        fail(f"train: {name} logged {len(losses)} steps, ran {steps}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train: {name} has a loss that is not finite")
+    n = min(20, steps // 2)
+    first, last = statistics.fmean(losses[:n]), statistics.fmean(losses[-n:])
+    if not last < first:
+        fail(f"train: {name} loss did not fall: mean of the first {n} {first:.4f}, "
+             f"of the last {n} {last:.4f}")
+    return {"steps": steps, "first": first, "last": last, "n": n}
+
+
+def encoder_flops(layers: int, hidden: int, inter: int, tokens: int, rows: int,
+                  length: int) -> float:
+    """Operations of a training step of a BERT encoder (forward, and
+    backward at twice the forward): 6 x the matmul parameters x tokens, plus
+    the attention products (q.k and p.v: 2 x 2 x L^2 x H a row and layer)
+    times 3."""
+    params = layers * (4 * hidden * hidden + 2 * hidden * inter)
+    return 6.0 * params * tokens + 3.0 * layers * 4.0 * length * length * hidden * rows
+
+
+def time_step(torch, loss_fn, apply, batch, iters: int = 5) -> dict:
+    """One training step's device time split into forward (the loss),
+    backward and the optimizer (CUDA events, mean of ``iters`` steps after
+    two warm-up steps), its wall time (host clock to a synchronize) and the
+    peak device memory of a step."""
+    for _ in range(2):
+        loss, _ = loss_fn(*batch)
+        loss.backward()
+        apply()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    parts = [0.0, 0.0, 0.0]
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss, _ = loss_fn(*batch)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        apply()
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i in range(3):
+            parts[i] += ev[i].elapsed_time(ev[i + 1]) / iters
+    wall = (time.perf_counter() - t0) * 1e3 / iters
+    return {"forward_ms": parts[0], "backward_ms": parts[1], "optimizer_ms": parts[2],
+            "step_ms": sum(parts), "wall_ms": wall,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def measure_trainers(torch, dev, proj: Path, pairs_path: Path, labels: Path) -> dict:
+    """Each recipe's trainer built here on the card at its recipe's widths,
+    one batch of the phase's data: ms a step (forward, backward, optimizer),
+    sequences/s and tokens/s, the share of the bf16 peak, peak memory, and a
+    profile of one step (device-busy, launches)."""
+    import dataclasses
+
+    import numpy as np
+
+    from cqs_tpu_torch.models.bert import BertConfig
+    from cqs_tpu_torch.models.tokenizer import load_tokenizer
+    from cqs_tpu_torch.parallel.train import (ContrastiveTrainer, DistillTrainer,
+                                              RerankerTrainer, TrainConfig, make_pair_batch)
+    from cqs_tpu_torch.store import Store
+    from cqs_tpu_torch.train.data import load_pairs
+    from cqs_tpu_torch.train.distill import DistillBatcher, load_teacher_labels
+
+    tok = load_tokenizer(None, vocab_size=32768)
+    out = {}
+    store = Store.open(proj / ".cqs-tpu", slot="default", readonly=True)
+    try:
+        cfg = dataclasses.replace(TrainConfig(), batch_per_device=16, hidden_size=384,
+                                  intermediate_size=768)
+        tr = DistillTrainer(cfg, device=dev)
+        batch = DistillBatcher(store, load_teacher_labels(labels), tok, cfg.seq_len,
+                               k=16).batch(16)
+        rows = 16 * 17
+        runs = {"distill": (tr, tr.distill_loss, batch, rows, cfg.seq_len, cfg)}
+        cfg = dataclasses.replace(TrainConfig(), batch_per_device=128, hidden_size=384,
+                                  num_layers=6, intermediate_size=1536, seq_len=128)
+        tr = ContrastiveTrainer(cfg, device=dev)
+        pairs = load_pairs(pairs_path)[:128]
+        negs = [(p.negatives + [q.positive for q in pairs[:2]])[:2] for p in pairs]
+        encs = [tok.encode("d: " + t, cfg.seq_len) for row in negs for t in row]
+        batch = (*make_pair_batch(["q: " + p.query for p in pairs],
+                                  ["d: " + p.positive for p in pairs], tok, cfg.seq_len),
+                 np.stack([e.ids for e in encs]).reshape(128, 2, -1),
+                 np.stack([e.mask for e in encs]).reshape(128, 2, -1))
+        runs["contrastive"] = (tr, tr.loss, batch, 128 * 4, cfg.seq_len, cfg)
+    finally:
+        store.close()
+    bcfg = BertConfig(vocab_size=32768, hidden_size=256, num_layers=4, num_heads=8,
+                      intermediate_size=1024, max_position=192, dtype=torch.bfloat16)
+    tr = RerankerTrainer(bcfg, 50, device=dev)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(4, 32768, size=(32, 192)).astype(np.int32)
+    mask = np.ones((32, 192), np.int32)
+    types = (np.arange(192)[None, :] >= 96).repeat(32, 0).astype(np.int32)
+    runs["reranker"] = (tr, tr.loss, (ids, mask, types, ids[::-1].copy(), mask, types), 64,
+                        192, bcfg)
+
+    for name, (tr, loss_fn, batch, rows, length, cfg) in runs.items():
+        t = time_step(torch, loss_fn, tr.opt.step, batch)
+        flops = encoder_flops(cfg.num_layers, cfg.hidden_size, cfg.intermediate_size,
+                              rows * length, rows, length)
+
+        def one_step():
+            loss, _ = loss_fn(*batch)
+            loss.backward()
+            tr.opt.step()
+
+        busy, by_kernel, launches, _ = device_busy(torch, one_step, calls=1)
+        t.update({"rows": rows, "length": length, "sequences_s": rows / t["step_ms"] * 1e3,
+                  "tokens_s": rows * length / t["step_ms"] * 1e3, "flops": flops,
+                  "bf16_peak_share": flops / (t["step_ms"] / 1e3) / BF16_PEAK,
+                  "busy_ms": busy, "launches": launches,
+                  "top_kernels": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4]})
+        out[name] = t
+        print(f"train[{name}]: {rows} sequences x {length} tokens a step: "
+              f"{t['step_ms']:.2f} ms device (forward {t['forward_ms']:.2f}, backward "
+              f"{t['backward_ms']:.2f}, optimizer {t['optimizer_ms']:.2f}), wall "
+              f"{t['wall_ms']:.2f} ms; {t['sequences_s']:.0f} sequences/s, "
+              f"{t['tokens_s']:.0f} tokens/s; {flops / 1e9:.1f} GFLOP, "
+              f"{100 * t['bf16_peak_share']:.2f}% of the bf16 peak; peak "
+              f"{t['peak_gib']:.2f} GiB; profile: {busy:.2f} ms busy, {launches:.0f} "
+              f"launches a step")
+        del tr
+    return out
+
+
+def card_against_cpu(torch, dev, proj: Path, labels: Path) -> dict:
+    """Three ``DistillTrainer`` steps of a small f32 configuration on the card
+    and on the CPU from the same parameters (drawn on the CPU, carried to the
+    card) and the same batches. Both sum f32 products in their own orders
+    (TF32 off): losses within rtol 1e-4; the parameter deltas' cosine over
+    the model >= 0.999 and each entry within 3 x lr (three AdamW steps, each
+    at most about lr, sign-like while a gradient is near zero)."""
+    import dataclasses
+
+    import numpy as np
+
+    from cqs_tpu_torch.models.tokenizer import load_tokenizer
+    from cqs_tpu_torch.parallel.train import DistillTrainer, TrainConfig
+    from cqs_tpu_torch.store import Store
+    from cqs_tpu_torch.train.distill import DistillBatcher, load_teacher_labels
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("train: TF32 is on for f32 matmuls; the trainers need f32 sums")
+    cfg = dataclasses.replace(TrainConfig(), hidden_size=128, num_layers=2, num_heads=4,
+                              intermediate_size=256, seq_len=32, batch_per_device=8,
+                              dtype=torch.float32)
+    cpu = DistillTrainer(cfg, device="cpu")
+    card = DistillTrainer(cfg, device=dev)
+    card.load_params_tree(cpu.params_tree())
+    before = cpu.params_tree()
+    store = Store.open(proj / ".cqs-tpu", slot="default", readonly=True)
+    try:
+        batcher = DistillBatcher(store, load_teacher_labels(labels),
+                                 load_tokenizer(None, vocab_size=32768), cfg.seq_len, k=4)
+        batches = [batcher.batch(8) for _ in range(3)]
+    finally:
+        store.close()
+    losses = []
+    for b in batches:
+        lc, _ = cpu.distill_step(*b)
+        lg, _ = card.distill_step(*b)
+        losses.append((lc, lg))
+        if abs(lg - lc) > 1e-4 * abs(lc):
+            fail(f"train: card loss {lg} vs CPU {lc} beyond rtol 1e-4")
+
+    def flat(tree, prefix=""):
+        for k, v in tree.items():
+            yield from (flat(v, prefix + k + "/") if isinstance(v, dict) else [(prefix + k, v)])
+
+    b0, a, g = dict(flat(before)), dict(flat(cpu.params_tree())), dict(flat(card.params_tree()))
+    da = np.concatenate([(a[k] - b0[k]).ravel() for k in b0]).astype(np.float64)
+    dg = np.concatenate([(g[k] - b0[k]).ravel() for k in b0]).astype(np.float64)
+    cos = float(da @ dg / (np.linalg.norm(da) * np.linalg.norm(dg)))
+    worst = float(np.abs(da - dg).max())
+    if cos < 0.999 or worst > 3 * cfg.lr:
+        fail(f"train: card vs CPU parameter deltas: cosine {cos:.6f}, max |diff| {worst:.3g}")
+    print(f"train: card vs CPU, 3 f32 DistillTrainer steps: losses {losses}; deltas cosine "
+          f"{cos:.6f}, max |diff| {worst:.3g} (rtol 1e-4 / >= 0.999 / <= {3 * cfg.lr:g})")
+    return {"losses": losses, "delta_cosine": cos, "max_abs_diff": worst}
+
+
+def phase_train(torch, dev, report, smi: str, recipes=TRAIN_RECIPES, max_pairs: int = 2000,
+                held: int = 64, measure: bool = True):
+    """The training path on the repository corpus: ``train-data --source all
+    --engine-negatives 2`` (engine negatives through the split kernel at the
+    hash tier's width 256), a labeled pool written from the pairs with
+    ``held`` queries held out as a gate, the teacher pass (``train-distill
+    --labels-only``, the engine on the card), ``train-distill`` at the FINAL
+    recipe with the gate probe, ``train`` at the r3a recipe, ``train-reranker``
+    and a hybrid ``train`` (its scales must stay [1.0, 0.3]); every loss
+    finite and falling (``check_losses``). Then the distilled checkpoint as
+    slot ``distilled`` (``cqs-mini``), indexed through the CLI, served as the
+    tier of ``TieredServing`` (``tier_slot=distilled``): queries solo and as
+    a batcher burst (equal), at least one answered by the tier, the split
+    kernel launched at the tier's width 384. Then the card against the CPU
+    (``card_against_cpu``) and, with ``measure``, each trainer's step times
+    (``measure_trainers``)."""
+    import pickle
+
+    import numpy as np
+
+    from cqs_tpu_torch.cli.context import CommandContext
+    from cqs_tpu_torch.cli.main import main
+    from cqs_tpu_torch.daemon.batcher import QueryBatcher
+    from cqs_tpu_torch.ops.topk import LOOP_SPLIT
+    from cqs_tpu_torch.search.engine import TieredServing
+
+    cuda = dev.type == "cuda"
+    out: dict = {"smi": smi, "seconds": {}}
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="cqs_train_"))
+    widths = LOOP_SPLIT.launches_by_width
+
+    def cli(label: str, argv: list[str]) -> str:
+        before = dict(widths)
+        rc, text, ms = run_cli_text(main, argv + ["--path", str(proj), "--device", str(dev)])
+        out["seconds"][label] = ms / 1e3
+        out.setdefault("split_launches", {})[label] = {
+            w: n - before.get(w, 0) for w, n in widths.items() if n != before.get(w, 0)}
+        if rc != 0:
+            fail(f"train: {label} exited {rc}: {text[-2000:]}")
+        print(f"train: {label} in {ms / 1e3:.1f} s; {LOOP_SPLIT.name} launches by width "
+              f"{out['split_launches'][label]}")
+        return text
+
+    try:
+        proj = tmp / "corpus"
+        proj.mkdir()
+        copy_corpus(proj)
+        out["seconds"]["copy"] = time.perf_counter() - t_phase
+        cli("index", ["index"])
+        pairs, pool, gate = tmp / "pairs.jsonl", tmp / "pool.json", tmp / "gate.json"
+        labels = tmp / "labels.jsonl"
+        text = cli("train-data", ["train-data", "--source", "all", "--max", str(max_pairs),
+                                  "--engine-negatives", "2", "--out", str(pairs)])
+        out["pairs"] = text.strip().splitlines()[-1]
+        out["pool"] = write_pool(proj, pairs, pool, gate, held)
+        cli("teacher", ["train-distill", "--labels-only", "--pool", str(pool),
+                        "--exclude", str(gate), "-k", "32", "--labels", str(labels)])
+        if cuda and not (out["split_launches"]["train-data"].get(256)
+                         and out["split_launches"]["teacher"].get(256)):
+            fail("train: the engine negatives or the teacher pass did not launch "
+                 f"{LOOP_SPLIT.name} at width 256")
+        ckpt = {name: tmp / name for name in recipes}
+        text = cli("distill", ["train-distill", "--labels", str(labels), *recipes["distill"],
+                               "--gate", str(gate), "--out", str(ckpt["distill"])])
+        out["gate"] = [ln for ln in text.splitlines() if ln.startswith("gate ")]
+        cli("contrastive", ["train", str(pairs), *recipes["contrastive"],
+                            "--out", str(ckpt["contrastive"])])
+        cli("reranker", ["train-reranker", str(pairs), *recipes["reranker"],
+                         "--out", str(ckpt["reranker"])])
+        cli("hybrid", ["train", str(pairs), *recipes["hybrid"], "--out", str(ckpt["hybrid"])])
+        out["losses"] = {}
+        for name, argv in recipes.items():
+            steps = int(argv[argv.index("--steps") + 1])
+            out["losses"][name] = check_losses(name, ckpt[name] / "train_log.jsonl", steps)
+        with open(ckpt["hybrid"] / "params.pkl", "rb") as f:
+            scales = pickle.load(f)["params"]["scales"]
+        if scales.tobytes() != np.array([1.0, 0.3], np.float32).tobytes():
+            fail(f"train: the hybrid's frozen scales moved to {scales}")
+        scales = scales.tolist()
+        print(f"train: losses (mean of the first n, of the last n): "
+              f"{ {k: (round(v['first'], 4), round(v['last'], 4)) for k, v in out['losses'].items()} }; "
+              f"hybrid scales {scales}; gate {out['gate']}")
+        # the distilled checkpoint served as a tier
+        slot = proj / ".cqs-tpu" / "slots" / "distilled"
+        slot.mkdir(parents=True)
+        (slot / "config.toml").write_text(
+            f'[embedding]\nmodel = "cqs-mini"\nmodel_path = "{ckpt["distill"]}"\n')
+        cli("tier index", ["--slot", "distilled", "index"])
+        width = int(recipes["distill"][recipes["distill"].index("--hidden-size") + 1])
+        before = dict(widths)
+        t0 = time.perf_counter()
+        with knobs({"CQST_TIER_SLOT": "distilled"}):
+            ctx = CommandContext.create(str(proj), device=dev)
+            ctx2 = CommandContext.create(str(proj), device=dev)
+            try:
+                eng = ctx.engine
+                if not isinstance(eng, TieredServing):
+                    fail(f"train: tier_slot=distilled gave {type(eng).__name__}")
+                if eng._tier.embedder.dim != width:
+                    fail(f"train: the tier embeds at {eng._tier.embedder.dim}, not {width}")
+                routed = [q for q in TIER_QUERIES if eng.engine_for(q) is eng._tier]
+                solo = {q: eng.search(q) for q in TIER_QUERIES}
+                if not routed or not any(solo[q].hits for q in routed):
+                    fail(f"train: no query answered by the tier engine (routed: {routed})")
+                batcher = QueryBatcher(ctx2.engine)
+                try:
+                    batcher.pause()
+                    futs = [batcher.submit(q) for q in TIER_QUERIES]
+                    batcher.resume()
+                    batched = [f.result(timeout=120) for f in futs]
+                finally:
+                    batcher.stop()
+                for q, res in zip(TIER_QUERIES, batched):
+                    if not same_hits([(h.row.id, h.score) for h in res.hits],
+                                     [(h.row.id, h.score) for h in solo[q].hits]):
+                        fail(f"train: batched result of {q!r} differs from solo under the tier")
+            finally:
+                ctx2.close()
+                ctx.close()
+        out["seconds"]["tier queries"] = time.perf_counter() - t0
+        out["tier"] = {"routed": routed, "batcher": batcher.stats_snapshot(),
+                       "split_launches": {w: n - before.get(w, 0) for w, n in widths.items()
+                                          if n != before.get(w, 0)}}
+        if cuda and not out["tier"]["split_launches"].get(width):
+            fail(f"train: the tier did not launch {LOOP_SPLIT.name} at width {width}")
+        print(f"train: tier answered {len(routed)} of {len(TIER_QUERIES)} queries "
+              f"({routed}); batched == solo; batcher {out['tier']['batcher']}; "
+              f"{LOOP_SPLIT.name} launches by width {out['tier']['split_launches']}")
+        if cuda:
+            t0 = time.perf_counter()
+            out["card_vs_cpu"] = card_against_cpu(torch, dev, proj, labels)
+            out["seconds"]["card vs cpu"] = time.perf_counter() - t0
+            if measure:
+                t0 = time.perf_counter()
+                out["steps"] = measure_trainers(torch, dev, proj, pairs, labels)
+                out["seconds"]["step times"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"train: the phase took {out['phase_s']:.1f} s "
+          f"({ {k: round(v, 1) for k, v in out['seconds'].items()} }); {smi}")
+    report["train"] = out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="kernels,e2e,scale,serve,neural,graph")
+    ap.add_argument("--phases", default="kernels,e2e,scale,serve,neural,graph,train")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not (REPO / "cqs_tpu_torch" / "__init__.py").is_file():
@@ -2398,6 +2828,17 @@ def main() -> int:
         print(f"launches on the graph path: {graph_launches}")
         if LOOP_SPLIT.launches == 0:
             fail(f"kernel {LOOP_SPLIT.name} was not launched on the graph path")
+    # the training path and the distilled tier: zeroed just before, read just after
+    for k in IMPLS:
+        k.launches = 0
+    if "train" in phases:
+        phase_train(torch, dev, report, smi)
+    torch.cuda.synchronize()
+    train_launches = {k.name: k.launches for k in IMPLS}
+    if "train" in phases:
+        print(f"launches on the train path: {train_launches}")
+        if LOOP_SPLIT.launches == 0:
+            fail(f"kernel {LOOP_SPLIT.name} was not launched on the train path")
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")]
     if loaded:
         fail(f"JAX modules were imported: {loaded[:5]}")
@@ -2417,11 +2858,13 @@ def main() -> int:
         kernels.append({"name": k.name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces,
                         "launches": (launches[k.name] + serve_launches[k.name]
-                                     + neural_launches[k.name] + graph_launches[k.name]),
+                                     + neural_launches[k.name] + graph_launches[k.name]
+                                     + train_launches[k.name]),
                         "main_path_launches": launches[k.name],
                         "daemon_path_launches": serve_launches[k.name],
                         "neural_path_launches": neural_launches[k.name],
                         "graph_path_launches": graph_launches[k.name],
+                        "train_path_launches": train_launches[k.name],
                         "kernel_phase_launches": kernel_phase[k.name],
                         "max_abs_err": report.get("errs", {}).get(k.name),
                         "shape": dict(zip(("n", "d", "tile", "b", "m"), case)),

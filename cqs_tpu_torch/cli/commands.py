@@ -456,6 +456,456 @@ def cmd_embed_2d(ctx: CommandContext, args) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# training (parallel/train.py on the context's device; one device, dp = tp = 1)
+# ---------------------------------------------------------------------------
+
+def cmd_train_data(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.train.data import (
+        attach_engine_negatives, generate_pairs_from_store, mine_callgraph_pairs,
+        mine_git_history, mine_labeled_queries, save_pairs,
+    )
+
+    pairs = []
+    if args.source in ("git", "both", "all"):
+        pairs += mine_git_history(ctx.root, ctx.store)
+    if args.source in ("labeled", "all") and getattr(args, "labeled", None):
+        pairs += mine_labeled_queries(ctx.store, args.labeled,
+                                      exclude_paths=getattr(args, "exclude", []))
+    if args.source in ("callgraph", "all"):
+        pairs += mine_callgraph_pairs(ctx.store, max_pairs=max(0, args.max - len(pairs)))
+    if args.source in ("store", "both", "all"):
+        pairs += generate_pairs_from_store(ctx.store, max_pairs=args.max - len(pairs))
+    pairs = pairs[: args.max]
+    k = int(getattr(args, "engine_negatives", 0) or 0)
+    if k > 0:
+        got = attach_engine_negatives(ctx.engine, pairs, per=k)
+        _print(f"engine negatives: {got}/{len(pairs)} pairs got serving-order negatives")
+    save_pairs(pairs, args.out)
+    _print(f"wrote {len(pairs)} training pairs to {args.out}")
+    return 0
+
+
+def _train_config(args, fields):
+    """``TrainConfig`` defaults with the given flags that are set (0 = unset);
+    ``--batch`` is the global batch, one device's."""
+    import dataclasses
+
+    from cqs_tpu_torch.parallel import TrainConfig
+
+    cfg = TrainConfig()
+    if getattr(args, "batch", 0):
+        cfg = dataclasses.replace(cfg, batch_per_device=max(1, args.batch))
+    for f in fields:
+        v = getattr(args, f, None)
+        if v:
+            cfg = dataclasses.replace(cfg, **{f: v})
+    return cfg
+
+
+class _TrainLog:
+    """``<out>/train_log.jsonl``: one JSON line a step (stage, step, loss and
+    the step's metric), so a run's whole loss curve can be read back."""
+
+    def __init__(self, out: Path):
+        out.mkdir(parents=True, exist_ok=True)
+        self._f = open(out / "train_log.jsonl", "w")
+
+    def write(self, **row) -> None:
+        import json
+
+        self._f.write(json.dumps(row) + "\n")
+
+    def close(self) -> None:
+        self._f.close()
+
+
+def _save_trained(trainer, out: Path, extra: dict) -> None:
+    """``params.pkl`` (the Flax-pathed numpy tree either package loads) and
+    the native serving checkpoint (``Embedder("cqs-mini", model_path=out)``)."""
+    import pickle
+
+    from cqs_tpu_torch.models.loader import save_native_checkpoint
+
+    cfg = trainer.cfg
+    tree = trainer.params_tree()
+    out.mkdir(parents=True, exist_ok=True)
+    with open(out / "params.pkl", "wb") as f:
+        pickle.dump(tree, f)
+    save_native_checkpoint(tree, out, {
+        "family": cfg.family, "tokenizer": "hash",
+        "hash_dim": cfg.hash_dim, "hash_seed": cfg.hash_seed,
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "num_layers": cfg.num_layers, "num_heads": cfg.num_heads,
+        "intermediate_size": cfg.intermediate_size,
+        "max_position": cfg.seq_len, "pooling": "mean", **extra,
+    })
+
+
+def _encode_texts(trainer, tok, texts: list[str], prefix: str, seq_len: int):
+    """The trainer's model over ``prefix + text``, 256 rows at a time, as
+    host f32 unit vectors."""
+    import numpy as np
+
+    outs = []
+    for s0 in range(0, len(texts), 256):
+        es = [tok.encode(prefix + t, seq_len) for t in texts[s0:s0 + 256]]
+        outs.append(trainer.encode(np.stack([e.ids for e in es]),
+                                   np.stack([e.mask for e in es])))
+    return np.concatenate(outs)
+
+
+def cmd_train(ctx: CommandContext, args) -> int:
+    import numpy as np
+
+    from cqs_tpu_torch.parallel import ContrastiveTrainer
+    from cqs_tpu_torch.parallel.train import AdamW, make_pair_batch
+    from cqs_tpu_torch.train.data import load_pairs
+
+    pairs = load_pairs(args.pairs)
+    if len(pairs) < 8:
+        _print(f"need at least 8 pairs, have {len(pairs)}")
+        return 1
+    cfg = _train_config(args, ("lr", "seq_len", "hidden_size", "num_layers",
+                               "intermediate_size", "family"))
+    trainer = ContrastiveTrainer(cfg, device=ctx.device)
+    tok = ctx.embedder.tokenizer
+    B = trainer.global_batch
+    rng = np.random.default_rng(0)
+    _print(f"training on {len(pairs)} pairs, global batch {B}, device {ctx.device}")
+    use_hard = bool(getattr(args, "hard_negatives", True))
+    # query/doc asymmetry: prefixes are trained in and stamped into the
+    # checkpoint config; serving (Embedder) applies them automatically
+    qp = getattr(args, "query_prefix", "q: ") or ""
+    dp_pref = getattr(args, "doc_prefix", "d: ") or ""
+    negs_per = max(1, int(getattr(args, "negatives_per", 1) or 1))
+    out = Path(args.out)
+    log = _TrainLog(out)
+
+    def run_stage(stage_pairs, steps, label):
+        for step in range(steps):
+            idx = rng.choice(len(stage_pairs), size=B)
+            batch = make_pair_batch([qp + stage_pairs[i].query for i in idx],
+                                    [dp_pref + stage_pairs[i].positive for i in idx],
+                                    tok, cfg.seq_len)
+            if use_hard:
+                # K mined hard negatives per pair; pairs without mined
+                # negatives take random OTHER pairs' positives (never this
+                # pair's own text)
+                neg_texts = []
+                for i in idx:
+                    negs = stage_pairs[i].negatives
+                    take = list(rng.permutation(len(negs))[:negs_per]) if negs else []
+                    row = [negs[t] for t in take]
+                    while len(row) < negs_per:
+                        j = int(rng.integers(len(stage_pairs)))
+                        if j != i and stage_pairs[j].positive != stage_pairs[i].positive:
+                            row.append(stage_pairs[j].positive)
+                    neg_texts.extend(row)
+                encs = [tok.encode(dp_pref + t, cfg.seq_len) for t in neg_texts]
+                n_ids = np.stack([e.ids for e in encs]).reshape(B, negs_per, -1)
+                n_mask = np.stack([e.mask for e in encs]).reshape(B, negs_per, -1)
+                loss, acc = trainer.train_step(*batch, n_ids, n_mask)
+            else:
+                loss, acc = trainer.train_step(*batch)
+            log.write(stage=label, step=step, loss=loss, acc=acc)
+            if step % 10 == 0:
+                _print(f"{label} step {step:4d}  loss {loss:.4f}  acc {acc:.3f}")
+
+    ft_path = getattr(args, "finetune", None)
+    probe_pairs = load_pairs(ft_path)[:256] if ft_path else pairs[:256]
+
+    def probe(label):
+        """Retrieval-style rank probe: each probe query against the union of
+        all probe positives."""
+        uniq: dict[str, int] = {}
+        gold_col = [uniq.setdefault(p.positive, len(uniq)) for p in probe_pairs]
+        qv = _encode_texts(trainer, tok, [p.query for p in probe_pairs], qp, cfg.seq_len)
+        dv = _encode_texts(trainer, tok, list(uniq), dp_pref, cfg.seq_len)
+        sims = qv @ dv.T
+        gold = sims[np.arange(len(probe_pairs)), gold_col]
+        ranks = (sims > gold[:, None]).sum(axis=1)
+        r5 = float((ranks < 5).mean())
+        _print(f"{label} probe: R@1 {float((ranks == 0).mean()):.3f} R@5 {r5:.3f} over "
+               f"{len(uniq)} docs (n={len(probe_pairs)})")
+        return r5
+
+    try:
+        run_stage(pairs, args.steps, "pretrain")
+        if getattr(args, "eval_every", 0):
+            probe("pretrain-end")
+        # second stage: supervised fine-tune on labeled (query -> gold) pairs
+        # with a plain adamw(ft_lr) and fresh state over every parameter, as
+        # the reference rebuilds its optimizer
+        if ft_path and getattr(args, "finetune_steps", 0):
+            ft_pairs = load_pairs(ft_path)
+            if len(ft_pairs) >= 8:
+                ft_lr = getattr(args, "finetune_lr", 0.0) or cfg.lr * 0.2
+                for p in trainer.model.parameters():
+                    p.requires_grad_(True)
+                trainer.opt = AdamW(trainer.trainable(), ft_lr)
+                _print(f"finetune on {len(ft_pairs)} labeled pairs at lr {ft_lr}")
+                run_stage(ft_pairs, args.finetune_steps, "finetune")
+                if getattr(args, "eval_every", 0):
+                    probe("finetune-end")
+    finally:
+        log.close()
+    _save_trained(trainer, out, {"query_prefix": qp, "doc_prefix": dp_pref,
+                                 "trained_by": "cqs_tpu_torch contrastive trainer"})
+    _print(f"saved checkpoint to {out} (params.pkl + model.safetensors + cqs_config.json)")
+    return 0
+
+
+def _gate_probe(ctx: CommandContext, trainer, gate_paths, seq_len: int) -> None:
+    """Student-only R@1/5/20 on held-out gate queries: the whole corpus and
+    the queries encoded by the student, no FTS legs, no boosts."""
+    import numpy as np
+
+    from cqs_tpu_torch.eval import load_query_set
+
+    tok = ctx.embedder.tokenizer
+    rows = [(r.id, r.origin, r.name.split("#w")[0], r.nl or r.name)
+            for r in ctx.store.iter_chunks("chunk_type != 'window'")]
+    _print(f"gate probe: encoding {len(rows)} corpus chunks ...")
+    dv = _encode_texts(trainer, tok, [t for *_, t in rows], "d: ", seq_len)
+    key_of = [(o, n) for _, o, n, _ in rows]
+    for gate_path in gate_paths:
+        qs = [q for q in load_query_set(gate_path) if q.gold is not None]
+        resolvable = [q for q in qs
+                      if any(o == q.gold.origin and n == q.gold.name for o, n in key_of)]
+        if not resolvable:
+            _print(f"gate {Path(gate_path).name}: no resolvable gold")
+            continue
+        sims = _encode_texts(trainer, tok, [q.query for q in resolvable], "q: ", seq_len) @ dv.T
+        r1 = r5 = r20 = 0
+        for i, q in enumerate(resolvable):
+            seen, rank, pos = set(), None, 0
+            for j in np.argsort(-sims[i]):
+                k2 = key_of[j]
+                if k2 in seen:
+                    continue
+                seen.add(k2)
+                if k2 == (q.gold.origin, q.gold.name):
+                    rank = pos
+                    break
+                pos += 1
+                if pos >= 20:
+                    break
+            if rank is not None:
+                r20 += 1
+                r5 += rank < 5
+                r1 += rank < 1
+        n_ = len(resolvable)
+        _print(f"gate {Path(gate_path).name}: student-only "
+               f"R@1 {r1/n_:.3f} R@5 {r5/n_:.3f} R@20 {r20/n_:.3f} (n={n_})")
+
+
+def cmd_train_distill(ctx: CommandContext, args) -> int:
+    """Distill the fused production ordering into a dense student: teacher
+    labels are the engine's top-k per mined query, the student a dual
+    encoder trained with listwise KL over the candidates."""
+    from cqs_tpu_torch.parallel.train import DistillTrainer
+    from cqs_tpu_torch.train.data import mine_labeled_queries
+    from cqs_tpu_torch.train.distill import (
+        DistillBatcher, generate_teacher_labels, load_teacher_labels,
+    )
+
+    lp = Path(args.labels)
+    if lp.exists() and not getattr(args, "relabel", False):
+        labels = load_teacher_labels(lp)
+        _print(f"loaded {len(labels)} teacher label rows from {lp}")
+    else:
+        qs = mine_labeled_queries(ctx.store, args.pool, exclude_paths=args.exclude or [])
+        _print(f"teacher pass over {len(qs)} mined queries (k={args.k}) ...")
+
+        def prog(done, total):
+            print(f"  {done}/{total}", file=sys.stderr)
+
+        lp.parent.mkdir(parents=True, exist_ok=True)
+        labels = generate_teacher_labels(ctx.engine, qs, k=args.k, out_path=lp, progress=prog)
+        _print(f"wrote {len(labels)} label rows to {lp}")
+    if getattr(args, "labels_only", False):
+        return 0
+
+    cfg = _train_config(args, ("lr", "seq_len", "hidden_size", "num_layers",
+                               "intermediate_size", "temperature"))
+    trainer = DistillTrainer(cfg, teacher_temp=getattr(args, "teacher_temp", 0.05),
+                             device=ctx.device)
+    out = Path(args.out)
+    resume_p = out / "params.pkl"
+    if getattr(args, "resume", False) and resume_p.exists():
+        import pickle
+
+        # either package's params.pkl; the optimizer state starts afresh
+        with open(resume_p, "rb") as f:
+            trainer.load_params_tree(pickle.load(f))
+        _print(f"resumed params from {resume_p}")
+    batcher = DistillBatcher(ctx.store, labels, ctx.embedder.tokenizer, cfg.seq_len,
+                             k=getattr(args, "cands", 16))
+    B = trainer.global_batch
+    _print(f"distilling on {len(batcher.labels)} label rows, batch {B} x "
+           f"K={batcher.k}, device {ctx.device}")
+    log = _TrainLog(out)
+    try:
+        for step in range(args.steps):
+            loss, agree = trainer.distill_step(*batcher.batch(B))
+            log.write(stage="distill", step=step, loss=loss, agree=agree)
+            if step % 25 == 0 or step == args.steps - 1:
+                _print(f"  step {step:5d}  kl {loss:.4f}  teacher-top1-agree {agree:.3f}")
+    finally:
+        log.close()
+    if getattr(args, "gate", None):
+        _gate_probe(ctx, trainer, args.gate, cfg.seq_len)
+    _save_trained(trainer, out, {"query_prefix": "q: ", "doc_prefix": "d: ",
+                                 "trained_by": "cqs_tpu_torch fused-ordering distillation"})
+    _print(f"saved distilled checkpoint to {out}")
+    return 0
+
+
+def cmd_train_reranker(ctx: CommandContext, args) -> int:
+    """Pairwise cross-encoder training on mined/labeled (query, positive,
+    negatives) pairs, loss softplus(s_neg - s_pos). The model computes in f32
+    on the CPU, as the reference's does off the TPU, and in bf16 on a GPU,
+    the card's counterpart of the TPU's bf16; its parameters are f32."""
+    import numpy as np
+
+    from cqs_tpu_torch.models.bert import BertConfig
+    from cqs_tpu_torch.models.embedder import compute_dtype
+    from cqs_tpu_torch.models.loader import load_cross_encoder_params, save_native_checkpoint
+    from cqs_tpu_torch.models.tokenizer import load_tokenizer
+    from cqs_tpu_torch.parallel.train import RerankerTrainer
+    from cqs_tpu_torch.train.data import load_pairs
+
+    pairs = [p for p in load_pairs(args.pairs) if p.negatives]
+    if len(pairs) < 8:
+        _print(f"need >=8 pairs with negatives, have {len(pairs)}")
+        return 1
+    tok = load_tokenizer(None, vocab_size=32768)
+    L = args.seq_len or 192
+    cfg = BertConfig(vocab_size=32768, hidden_size=args.hidden_size or 256,
+                     num_layers=args.num_layers or 4, num_heads=8,
+                     intermediate_size=args.intermediate_size or 1024, max_position=L,
+                     dtype=compute_dtype(ctx.device))
+    # warmup + clip: seq-192 cross-encoders collapse to constant logits at a
+    # flat 1e-3 on hard pairs
+    trainer = RerankerTrainer(cfg, args.steps, lr=args.lr or 5e-4, device=ctx.device)
+    if getattr(args, "init", None):
+        loaded = load_cross_encoder_params(Path(args.init), trainer.model.state_dict())
+        if loaded is None:
+            _print(f"no loadable checkpoint at {args.init}")
+            return 1
+        import torch
+
+        with torch.no_grad():
+            trainer.model.load_state_dict(loaded)
+        _print(f"initialized from {args.init}")
+
+    def encode_pair(q: str, p: str):
+        half = L // 2 - 2
+        qe = tok.encode(q, half)
+        qn = int(qe.mask.sum())
+        pe = tok.encode(p, L - qn)
+        pn = int(pe.mask.sum())
+        ids = np.zeros(L, np.int32)
+        mask = np.zeros(L, np.int32)
+        types = np.zeros(L, np.int32)
+        ids[:qn] = qe.ids[:qn]
+        ids[qn:qn + pn] = pe.ids[:pn]
+        mask[:qn + pn] = 1
+        types[qn:qn + pn] = 1
+        return ids, mask, types
+
+    rng = np.random.default_rng(0)
+    B = args.batch or 32
+    out = Path(args.out)
+    log = _TrainLog(out)
+    try:
+        for s_i in range(args.steps):
+            idx = rng.choice(len(pairs), size=B)
+            pos = [encode_pair(pairs[i].query, pairs[i].positive) for i in idx]
+            neg = [encode_pair(pairs[i].query,
+                               pairs[i].negatives[int(rng.integers(len(pairs[i].negatives)))])
+                   for i in idx]
+            loss, acc = trainer.train_step(*(np.stack(x) for x in zip(*pos)),
+                                           *(np.stack(x) for x in zip(*neg)))
+            log.write(stage="reranker", step=s_i, loss=loss, acc=acc)
+            if s_i % 10 == 0:
+                _print(f"step {s_i:4d}  loss {loss:.4f}  pair-acc {acc:.3f}")
+    finally:
+        log.close()
+    save_native_checkpoint(trainer.params_tree(), out, {
+        "family": "cross-encoder", "tokenizer": "hash",
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "num_layers": cfg.num_layers, "num_heads": cfg.num_heads,
+        "intermediate_size": cfg.intermediate_size, "max_position": L,
+        "trained_by": "cqs_tpu_torch train-reranker"})
+    _print(f"saved reranker checkpoint to {out}")
+    return 0
+
+
+def cmd_export_model(ctx: CommandContext, args) -> int:
+    """The active embedder's parameters as the reference's Flax-pathed numpy
+    tree (``params.pkl``; the hash family's ``{"table": ...}``) and its
+    identity (``config.json``)."""
+    import json
+    import pickle
+    import types
+
+    import torch
+
+    from cqs_tpu_torch.models.bert import BertLayer
+    from cqs_tpu_torch.models.convert import flax_tree_from_torch
+    from cqs_tpu_torch.models.gemma import GemmaAttention
+
+    emb = ctx.embedder
+    model = emb._ensure_model()
+    if isinstance(model, torch.Tensor):
+        tree = {"table": model.float().cpu().numpy()}
+    else:
+        layer = next(m for m in model.modules() if isinstance(m, (BertLayer, GemmaAttention)))
+        hd = layer.head_dim if isinstance(layer, BertLayer) else layer.cfg.head_dim
+        tree = flax_tree_from_torch(model.state_dict(), types.SimpleNamespace(head_dim=hd))
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    with open(out / "params.pkl", "wb") as f:
+        pickle.dump(tree, f)
+    (out / "config.json").write_text(json.dumps({
+        "preset": emb.preset.name, "dim": emb.dim,
+        "fingerprint": emb.fingerprint,
+        "max_seq_len": emb.preset.max_seq_len,
+    }, indent=1))
+    _print(f"exported {emb.preset.name} to {out}/")
+    return 0
+
+
+def cmd_train_centroids(ctx: CommandContext, args) -> int:
+    """Per-category query centroids from labeled queries, written where the
+    router reads them."""
+    from collections import Counter
+
+    from cqs_tpu_torch.eval import load_query_set
+    from cqs_tpu_torch.search.engine import CENTROIDS_FILE
+    from cqs_tpu_torch.search.router import CentroidClassifier, parse_category
+
+    labeled = []
+    for qfile in args.queries:
+        for q in load_query_set(qfile):
+            if q.category:
+                labeled.append((parse_category(q.category), ctx.embedder.embed_query(q.query)))
+    if len(labeled) < 8:
+        _print(f"need more labeled queries (got {len(labeled)})")
+        return 1
+    clf = CentroidClassifier.train(labeled, fingerprint=ctx.embedder.fingerprint)
+    out = ctx.slot_path / CENTROIDS_FILE
+    clf.save(out)
+    counts = Counter(cat.value for cat, _ in labeled)
+    _print(f"trained centroids for {len(clf.categories)} categories "
+           f"from {len(labeled)} queries -> {out}")
+    for cat, n in counts.most_common():
+        _print(f"  {cat:20} {n}")
+    return 0
+
+
 #: command -> handler: what the port serves. ``cli/main.py`` exits 2 for a
 #: reference command that has no entry here.
 HANDLERS = {
@@ -467,4 +917,7 @@ HANDLERS = {
     "ping": cmd_ping, "refresh": cmd_refresh, "watch": cmd_watch,
     "batch": cmd_batch, "mcp": cmd_mcp, "serve": cmd_serve,
     "embed-2d": cmd_embed_2d,
+    "train-data": cmd_train_data, "train": cmd_train, "train-distill": cmd_train_distill,
+    "train-reranker": cmd_train_reranker, "export-model": cmd_export_model,
+    "train-centroids": cmd_train_centroids,
 }

@@ -4,7 +4,8 @@ explicit device.
 Port of ``cqs_tpu/cli/context.py``. A neural preset with a configured
 ``model_path`` runs its model on the context's device; without local
 weights the embedder and the SPLADE encoder fall back to the hash tier, as
-in the reference. Tiered serving (``tier_slot``) is not ported.
+in the reference. With ``tier_slot`` set, ``engine`` is a
+``TieredServing`` over this slot's engine and the tier slot's.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from cqs_tpu_torch.store import Store, resolve_slot, slot_dir
 from cqs_tpu_torch.utils.trace import get_tracer
 from cqs_tpu_torch.device import resolve_device
 from cqs_tpu_torch.models import Embedder, SpladeEncoder
-from cqs_tpu_torch.search.engine import SearchEngine
+from cqs_tpu_torch.search.engine import SearchEngine, TieredServing
 
 
 @dataclass
@@ -116,14 +117,35 @@ class CommandContext:
     @property
     def engine(self) -> SearchEngine:
         if self._engine is None:
-            if self.config.limits.tier_slot and self.config.limits.tier_slot != self.slot:
-                raise NotImplementedError("tiered serving (tier_slot) is not yet ported")
             eng = SearchEngine(self.store, self.embedder, self._maybe_splade(),
                                slot_dir=self.slot_path, config=self.config,
                                device=self.device)
             eng.load_or_build_indexes()
-            self._engine = eng
+            self._engine = self._maybe_tiered(eng)
         return self._engine
+
+    def _maybe_tiered(self, eng: SearchEngine):
+        """Adaptive dual-TIER routing (knobs ``tier_slot``,
+        ``tier_categories``): wrap the default engine so the listed
+        categories are served by the other slot's engine, built by a full
+        side-by-side context on the same device. A tier slot that cannot
+        be opened leaves single-tier serving, with a warning, as in the
+        reference."""
+        tier_slot = self.config.limits.tier_slot
+        if not tier_slot or tier_slot == self.slot:
+            return eng
+        cats = {c.strip() for c in self.config.limits.tier_categories.split(",") if c.strip()}
+        if not cats:
+            return eng
+        try:
+            self._tier_ctx = CommandContext.create(str(self.root), tier_slot,
+                                                   readonly=self.readonly, device=self.device)
+            tier_eng = self._tier_ctx.engine
+        except Exception as e:
+            get_tracer("context").warning(
+                "tier_slot %r unavailable (%s); serving single-tier", tier_slot, e)
+            return eng
+        return TieredServing(eng, tier_eng, cats)
 
     def _maybe_splade(self) -> SpladeEncoder | None:
         if self.config.limits.disable_splade:
@@ -131,6 +153,9 @@ class CommandContext:
         return self.splade
 
     def close(self) -> None:
+        tier = getattr(self, "_tier_ctx", None)
+        if tier is not None:
+            tier.close()
         if self._engine is not None:
             self._engine.close()
         if self._store is not None:

@@ -8,8 +8,9 @@ read commands to a live daemon (``daemon/client.py::FORWARDABLE``) before
 it runs them in-process. The handlers are in ``cli/commands.py``
 (``HANDLERS``); a reference command without one exits 2 with "not yet
 ported". ``--device`` defaults to ``cuda`` and fails loudly where there is no
-GPU; ``--device cpu`` runs the plain scans. A daemon answers on the device
-it was started on, whatever ``--device`` the forwarding CLI was given.
+GPU; ``--device cpu`` runs the plain scans and trains on the CPU. A daemon
+answers on the device it was started on, whatever ``--device`` the
+forwarding CLI was given.
 """
 
 from __future__ import annotations
@@ -58,8 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = argparse.ArgumentParser(
         prog="cqs-tpu-torch", parents=[common],
-        description="Hybrid code search on PyTorch/CUDA (lexical tier): index, "
-                    "search, call-graph reads and a warm query daemon.")
+        description="Hybrid code search on PyTorch/CUDA: index, search, call-graph "
+                    "reads, a warm query daemon and the embedder's trainers.")
     _orig_sub = p.add_subparsers(dest="command")
 
     class _Sub:
@@ -147,6 +148,90 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--host", default="127.0.0.1")
     sp = sub.add_parser("embed-2d", help="compute 2-D projection coords for the cluster view")
     sp.add_argument("--method", default="auto", choices=["auto", "pca", "umap"])
+    sp = sub.add_parser("train-data", help="mine (query, positive, negatives) pairs")
+    sp.add_argument("--out", default="train_pairs.jsonl")
+    sp.add_argument("--source", choices=["git", "store", "both", "labeled", "callgraph", "all"],
+                    default="both")
+    sp.add_argument("--max", type=int, default=2000)
+    sp.add_argument("--labeled", nargs="*", default=[],
+                    help="v3-format labeled query JSONs (query -> gold) to mine")
+    sp.add_argument("--exclude", nargs="*", default=[],
+                    help="held-out split JSONs whose queries must NOT train")
+    sp.add_argument("--engine-negatives", type=int, default=0, metavar="K",
+                    help="replace mined negatives with the engine's own top-K "
+                         "non-gold results per query (serving-order hard "
+                         "negatives)")
+    sp = sub.add_parser("train", help="contrastive fine-tune on mined pairs")
+    sp.add_argument("pairs", help="train_pairs.jsonl from train-data")
+    sp.add_argument("--steps", type=int, default=100)
+    sp.add_argument("--family", choices=["bert", "hybrid"], default="bert",
+                    help="hybrid = frozen hash leg + learned BERT leg (wide-and-deep)")
+    sp.add_argument("--finetune", help="second-stage pairs (e.g. labeled queries)")
+    sp.add_argument("--finetune-steps", type=int, default=0)
+    sp.add_argument("--finetune-lr", type=float, default=0.0)
+    sp.add_argument("--out", default="finetuned", help="output checkpoint dir")
+    sp.add_argument("--batch", type=int, default=0,
+                    help="global batch (in-batch negatives); 0 = config default")
+    sp.add_argument("--lr", type=float, default=0.0, help="learning rate; 0 = default")
+    sp.add_argument("--seq-len", type=int, default=0, help="train sequence length")
+    sp.add_argument("--hidden-size", type=int, default=0)
+    sp.add_argument("--num-layers", type=int, default=0)
+    sp.add_argument("--intermediate-size", type=int, default=0)
+    sp.add_argument("--no-hard-negatives", dest="hard_negatives",
+                    action="store_false", default=True)
+    sp.add_argument("--negatives-per", type=int, default=1,
+                    help="hard negatives per pair per step (softmax columns)")
+    sp.add_argument("--query-prefix", default="q: ",
+                    help="query-side prefix trained in and stamped into the "
+                         "checkpoint (serving applies it automatically)")
+    sp.add_argument("--doc-prefix", default="d: ",
+                    help="document-side prefix (see --query-prefix)")
+    sp.add_argument("--eval-every", type=int, default=0, metavar="N",
+                    help="nonzero: print a retrieval-rank probe (gold rank "
+                         "among all probe positives) at each stage boundary; "
+                         "probe set = --finetune pairs if given else the "
+                         "train pairs")
+
+    sp = sub.add_parser("train-distill", help="distill the fused ordering into a dense student")
+    sp.add_argument("--labels", default=".cqs-tpu/distill_labels.jsonl",
+                    help="teacher label JSONL (generated on first run)")
+    sp.add_argument("--pool", nargs="+", default=[], help="labeled query JSONs to mine")
+    sp.add_argument("--exclude", nargs="*", default=[], help="held-out splits to exclude")
+    sp.add_argument("--relabel", action="store_true", help="regenerate teacher labels")
+    sp.add_argument("--labels-only", action="store_true", help="stop after the teacher pass")
+    sp.add_argument("-k", type=int, default=32, help="teacher top-k per query")
+    sp.add_argument("--cands", type=int, default=16, help="candidates per training example")
+    sp.add_argument("--steps", type=int, default=500)
+    sp.add_argument("--batch", type=int, default=0)
+    sp.add_argument("--lr", type=float, default=0.0)
+    sp.add_argument("--seq-len", type=int, default=0, dest="seq_len")
+    sp.add_argument("--hidden-size", type=int, default=0, dest="hidden_size")
+    sp.add_argument("--num-layers", type=int, default=0, dest="num_layers")
+    sp.add_argument("--intermediate-size", type=int, default=0, dest="intermediate_size")
+    sp.add_argument("--temperature", type=float, default=0.0)
+    sp.add_argument("--teacher-temp", type=float, default=0.05, dest="teacher_temp")
+    sp.add_argument("--out", default=".cqs-tpu/distilled")
+    sp.add_argument("--resume", action="store_true",
+                    help="continue from an existing --out/params.pkl")
+    sp.add_argument("--gate", nargs="*", default=[],
+                    help="held-out gate split JSONs: student-only R@k probe after training")
+
+    sp = sub.add_parser("train-reranker", help="pairwise cross-encoder training on mined pairs")
+    sp.add_argument("pairs")
+    sp.add_argument("--steps", type=int, default=200)
+    sp.add_argument("--batch", type=int, default=32)
+    sp.add_argument("--lr", type=float, default=0.0)
+    sp.add_argument("--seq-len", type=int, default=0, dest="seq_len")
+    sp.add_argument("--hidden-size", type=int, default=0)
+    sp.add_argument("--num-layers", type=int, default=0)
+    sp.add_argument("--intermediate-size", type=int, default=0)
+    sp.add_argument("--init", help="warm-start from a previous reranker checkpoint")
+    sp.add_argument("--out", default="reranker_ckpt")
+
+    sp = sub.add_parser("train-centroids", help="train query-category centroids from labeled queries")
+    sp.add_argument("queries", nargs="+", help="v3-format eval JSONs with categories")
+    sp = sub.add_parser("export-model", help="export the active embedder config + params")
+    sp.add_argument("--out", default="exported_model")
     return p
 
 

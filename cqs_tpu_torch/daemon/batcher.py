@@ -7,7 +7,9 @@ batch and run ONE device program on the engine's device
 (``hybrid_query_batch``, or the engine's int8 program when ``scan_q8``
 selects one, as on the solo path); hydration
 and scoring fan back out per query through the engine's shared host stage,
-so a batched query returns what the solo path returns.
+so a batched query returns what the solo path returns. Over a
+``TieredServing`` each query is batched on the engine that answers it solo
+(``engine_for``).
 """
 
 from __future__ import annotations
@@ -82,8 +84,8 @@ class QueryBatcher:
         # result-cache hits resolve synchronously — no reason to ride the
         # batch window (the window wait was the cached path's whole latency)
         try:
-            hit = self.engine.cached_result(
-                self.engine.result_cache_key(query, limit))
+            eng = self._engine_for(query)
+            hit = eng.cached_result(eng.result_cache_key(query, limit))
         except Exception:
             hit = None
         if hit is not None:
@@ -146,8 +148,23 @@ class QueryBatcher:
                     if not p.future.done():
                         p.future.set_exception(e)
 
+    def _engine_for(self, query: str) -> SearchEngine:
+        """The engine that answers ``query``: a ``TieredServing``'s tier or
+        default engine, else the one engine."""
+        route = getattr(self.engine, "engine_for", None)
+        return route(query) if route is not None else self.engine
+
     def _run_batch(self, batch: list[_Pending]) -> None:
-        eng = self.engine
+        # each query runs on the engine that answers it solo (a tiered
+        # engine's tier or default), one batch program per engine
+        by_engine: dict[int, tuple[SearchEngine, list[_Pending]]] = {}
+        for p in batch:
+            eng = self._engine_for(p.query)
+            by_engine.setdefault(id(eng), (eng, []))[1].append(p)
+        for eng, part in by_engine.values():
+            self._run_engine(eng, part)
+
+    def _run_engine(self, eng: SearchEngine, batch: list[_Pending]) -> None:
         if eng.dense is None:
             eng.load_or_build_indexes()
         # group per target index (dual-index routing must match the solo
@@ -188,10 +205,9 @@ class QueryBatcher:
                 p.future.set_exception(e)
         for group in groups.values():
             index = eng._pick_dense_index(group[0][1])
-            self._run_group(group, index)
+            self._run_group(eng, group, index)
 
-    def _run_group(self, batchable: list, index) -> None:
-        eng = self.engine
+    def _run_group(self, eng: SearchEngine, batchable: list, index) -> None:
         t0 = time.perf_counter()
         # the engine's index lock: one batch reads one consistent set of index
         # tensors, whatever a refresh does meanwhile (search/engine.py). It is
@@ -204,7 +220,8 @@ class QueryBatcher:
                 and eng.sparse.ids_digest == index.ids_digest)
             generation = eng.index_generation
             if current:
-                q_dense, legs, fused, rows, d_leg, s_leg = self._device_batch(batchable, index)
+                q_dense, legs, fused, rows, d_leg, s_leg = self._device_batch(
+                    eng, batchable, index)
         if not current:
             self.stats["solo"] += len(batchable)
             for p, _, _ in batchable:
@@ -222,7 +239,7 @@ class QueryBatcher:
         def finish(item):
             i, (p, cls, alpha) = item
             try:
-                hits = self._hydrate(p, cls, index, fused[i], rows[i],
+                hits = self._hydrate(eng, p, cls, index, fused[i], rows[i],
                                      d_leg[i], s_leg[i], q_dense[i], legs[i])
                 res = SearchResult(
                     hits[: p.limit], cls.category.value, cls.strategy.value + "+batched",
@@ -245,12 +262,11 @@ class QueryBatcher:
             for item in enumerate(batchable):
                 finish(item)
 
-    def _device_batch(self, batchable: list, index):
+    def _device_batch(self, eng: SearchEngine, batchable: list, index):
         """The device part of one group, under the caller's index lock:
         embed, start the FTS legs, run ONE device program for the padded
         batch. Returns (q_dense, legs, fused, rows, dense leg, sparse leg),
         the last four as host arrays of the B real queries."""
-        eng = self.engine
         B = len(batchable)
         self.stats["batches"] += 1
         self.stats["fused"] += B
@@ -297,11 +313,10 @@ class QueryBatcher:
         return (q_dense, legs, fused[:B].cpu().numpy(), rows[:B].cpu().numpy(),
                 d_leg[:B].cpu().numpy(), s_leg[:B].cpu().numpy())
 
-    def _hydrate(self, p: _Pending, cls, index, fused, rows, d_leg, s_leg,
-                 q_vec, legs) -> list[SearchHit]:
+    def _hydrate(self, eng: SearchEngine, p: _Pending, cls, index, fused, rows, d_leg,
+                 s_leg, q_vec, legs) -> list[SearchHit]:
         """Per-query host stage: identical to the solo path by construction —
         pool extraction here, then the engine's shared ``_host_stage``."""
-        eng = self.engine
         cand_ids, keep = [], []
         # vectorized cosine-threshold pre-drop (same rows score_candidate
         # would reject; identical to the solo path's mask)

@@ -32,6 +32,10 @@ class BertConfig:
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
     dtype: torch.dtype = torch.bfloat16
+    #: the dtype the Dense and Embed parameters are held in; None: ``dtype``
+    #: (serving). The trainers hold f32 master parameters (Flax's
+    #: ``param_dtype``), see ``models/layers.py``
+    param_dtype: torch.dtype | None = None
 
     @classmethod
     def large(cls, **kw) -> "BertConfig":
@@ -48,9 +52,9 @@ class BertConfig:
 class BertEmbeddings(nn.Module):
     def __init__(self, c: BertConfig):
         super().__init__()
-        self.word = Embed(c.vocab_size, c.hidden_size, c.dtype)
-        self.position = Embed(c.max_position, c.hidden_size, c.dtype)
-        self.token_type = Embed(c.type_vocab_size, c.hidden_size, c.dtype)
+        self.word = Embed(c.vocab_size, c.hidden_size, c.dtype, c.param_dtype)
+        self.position = Embed(c.max_position, c.hidden_size, c.dtype, c.param_dtype)
+        self.token_type = Embed(c.type_vocab_size, c.hidden_size, c.dtype, c.param_dtype)
         self.ln = LayerNorm(c.hidden_size, c.layer_norm_eps, c.dtype)
 
     def forward(self, ids: torch.Tensor, type_ids: torch.Tensor | None = None) -> torch.Tensor:
@@ -66,12 +70,12 @@ class BertLayer(nn.Module):
         super().__init__()
         self.heads = c.num_heads
         self.head_dim = c.hidden_size // c.num_heads
-        H, dt = c.hidden_size, c.dtype
-        self.q, self.k, self.v = Dense(H, H, dtype=dt), Dense(H, H, dtype=dt), Dense(H, H, dtype=dt)
-        self.out = Dense(H, H, dtype=dt)
+        H, dt, pd = c.hidden_size, c.dtype, c.param_dtype
+        self.q, self.k, self.v = (Dense(H, H, dtype=dt, param_dtype=pd) for _ in range(3))
+        self.out = Dense(H, H, dtype=dt, param_dtype=pd)
         self.ln1 = LayerNorm(H, c.layer_norm_eps, dt)
-        self.ff1 = Dense(H, c.intermediate_size, dtype=dt)
-        self.ff2 = Dense(c.intermediate_size, H, dtype=dt)
+        self.ff1 = Dense(H, c.intermediate_size, dtype=dt, param_dtype=pd)
+        self.ff2 = Dense(c.intermediate_size, H, dtype=dt, param_dtype=pd)
         self.ln2 = LayerNorm(H, c.layer_norm_eps, dt)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -143,9 +147,11 @@ class BertMLMHead(nn.Module):
 
     def __init__(self, c: BertConfig):
         super().__init__()
-        self.transform = Dense(c.hidden_size, c.hidden_size, dtype=c.dtype)
+        self.transform = Dense(c.hidden_size, c.hidden_size, dtype=c.dtype,
+                               param_dtype=c.param_dtype)
         self.ln = LayerNorm(c.hidden_size, c.layer_norm_eps, c.dtype)
-        self.decoder = Dense(c.hidden_size, c.vocab_size, dtype=c.dtype)
+        self.decoder = Dense(c.hidden_size, c.vocab_size, dtype=c.dtype,
+                             param_dtype=c.param_dtype)
 
     def forward(self, hidden: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.ln(F.gelu(self.transform(hidden))))

@@ -1,4 +1,5 @@
-"""Carry parameters from the JAX package into the port's models."""
+"""Carry parameters between the JAX package's Flax trees and the port's
+modules, both ways."""
 
 from __future__ import annotations
 
@@ -68,3 +69,48 @@ def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
     ``CrossEncoder``, ``GemmaEncoder``, ``GemmaEmbedder`` and
     ``HybridDenseEmbedder`` alike."""
     return dict(flax_leaf_to_torch(path, value) for path, value in flatten_tree(tree).items())
+
+
+#: modules whose 2-D ``weight`` is a Flax ``Embed`` table (``embedding``)
+EMBED_NAMES = frozenset({"word", "position", "token_type", "tok_embed"})
+#: ``DenseGeneral`` modules: q/k/v project to ``[heads, head_dim]``, and
+#: ``out`` (every model's attention output) contracts ``[heads, head_dim]``
+HEAD_PROJECTIONS = frozenset({"q", "k", "v"})
+
+
+def flax_tree_from_torch(state_dict: Mapping[str, torch.Tensor], cfg) -> dict:
+    """The inverse of :func:`params_from_flax`: a port module's
+    ``state_dict`` -> the reference's nested Flax tree ``{"params": ...}`` of
+    f32 numpy arrays, at Flax's paths and shapes, for ``params.pkl`` and the
+    native checkpoint. ``cfg`` gives the head width (``head_dim``, else
+    ``hidden_size // num_heads``: a ``BertConfig`` or ``GemmaConfig``).
+
+    - ``weight`` of a 1-D norm -> ``scale``; of an ``Embed`` (names in
+      :data:`EMBED_NAMES`) -> ``embedding``; of a ``Dense`` -> ``kernel``
+      transposed, a q/k/v kernel reshaped to ``[in, heads, head_dim]`` and
+      an attention ``out`` kernel to ``[heads, head_dim, out]``;
+    - ``bias`` -> ``bias``, ``[heads, head_dim]`` for q/k/v;
+    - anything else (the hybrid's ``scales``) keeps its name."""
+    hd = getattr(cfg, "head_dim", None) or cfg.hidden_size // cfg.num_heads
+    tree: dict = {}
+    for key, value in state_dict.items():
+        path = key.split(".")
+        arr = value.detach().float().cpu().numpy()
+        leaf, owner = path[-1], (path[-2] if len(path) > 1 else "")
+        if leaf == "weight" and arr.ndim == 1:
+            leaf = "scale"
+        elif leaf == "weight" and owner in EMBED_NAMES:
+            leaf = "embedding"
+        elif leaf == "weight":
+            arr, leaf = arr.T, "kernel"
+            if owner in HEAD_PROJECTIONS:
+                arr = arr.reshape(arr.shape[0], -1, hd)
+            elif owner == "out":
+                arr = arr.reshape(-1, hd, arr.shape[-1])
+        elif leaf == "bias" and owner in HEAD_PROJECTIONS:
+            arr = arr.reshape(-1, hd)
+        node = tree
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[leaf] = np.array(arr, dtype=np.float32, order="C")
+    return {"params": tree}

@@ -11,8 +11,15 @@ rounding points:
 
 - :class:`Dense` keeps ``weight`` as ``[out, in]`` (a Flax kernel
   transposed; a ``DenseGeneral`` kernel flattened first, see
-  ``models/convert.py``) in the dtype it computes in, so a bf16 layer holds
-  bf16 weights, the value Flax's cast gives;
+  ``models/convert.py``) in ``param_dtype`` and casts it, with the bias and
+  the input, to ``dtype`` at each use, where Flax's ``promote_dtype`` does;
+  :class:`Embed` casts its table before the lookup, as Flax does. Serving
+  holds the parameters in the dtype it computes in (``param_dtype`` unset),
+  so a bf16 layer holds bf16 weights, the value Flax's cast gives; the
+  trainers hold f32 master parameters (``param_dtype=torch.float32``) and
+  compute in bf16, as Flax's ``param_dtype`` f32 under ``dtype`` bf16 does:
+  a bf16 parameter would lose an AdamW step of 1e-4 (bf16's relative step
+  is 7.8e-3). The two give bit-equal forwards from the same parameters;
 - :class:`LayerNorm` and :class:`RMSNorm` keep their weights in f32 and
   compute in f32, as Flax does under a bf16 module;
 - :func:`attention` upcasts q and k to f32 (exact) and multiplies them in
@@ -46,16 +53,20 @@ _TRUNC_STD = 0.87962566103423978
 
 class Dense(nn.Module):
     """Flax ``Dense`` (and ``DenseGeneral``, flattened): ``x @ W.T + b``,
-    computed in ``dtype``."""
+    computed in ``dtype`` from parameters held in ``param_dtype`` (default:
+    ``dtype``)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, param_dtype: torch.dtype | None = None):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(out_features, in_features, dtype=dtype))
-        self.bias = nn.Parameter(torch.empty(out_features, dtype=dtype)) if bias else None
+        self.dtype = dtype
+        pd = param_dtype or dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features, dtype=pd))
+        self.bias = nn.Parameter(torch.empty(out_features, dtype=pd)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
 
     def reset(self, gen: torch.Generator) -> None:
         """Flax's ``lecun_normal``: truncated normal, std sqrt(1 / fan_in)."""
@@ -66,18 +77,23 @@ class Dense(nn.Module):
 
 
 class Embed(nn.Module):
-    """Flax ``Embed``: a table lookup in ``dtype``."""
+    """Flax ``Embed``: a lookup in the table cast to ``dtype``, the table
+    held in ``param_dtype`` (default: ``dtype``)."""
 
-    def __init__(self, num: int, features: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, num: int, features: int, dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(num, features, dtype=dtype))
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(num, features, dtype=param_dtype or dtype))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids, self.weight)
+        return F.embedding(ids, self.weight.to(self.dtype))
 
     def reset(self, gen: torch.Generator) -> None:
-        """Flax's default embedding init: normal, std sqrt(1 / rows)."""
-        nn.init.normal_(self.weight, std=1.0 / math.sqrt(self.weight.shape[0]), generator=gen)
+        """Flax's default embedding init (``variance_scaling(1, "fan_in",
+        "normal", out_axis=0)``, whose fan-in is the feature width): normal,
+        std sqrt(1 / features)."""
+        nn.init.normal_(self.weight, std=1.0 / math.sqrt(self.weight.shape[1]), generator=gen)
 
 
 class LayerNorm(nn.Module):

@@ -32,7 +32,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from cqs_tpu_torch.models.convert import flax_leaf_to_torch
+from cqs_tpu_torch.models.convert import flatten_tree, flax_leaf_to_torch
 
 _DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
            "I64": torch.int64, "I32": torch.int32}
@@ -281,6 +281,21 @@ def load_safetensors_params(model_dir: str | Path, template: Mapping[str, torch.
     if family in ("gemma", "qwen3"):
         return _map_gemma(tensors, template)
     return None
+
+
+def save_native_checkpoint(params: Mapping, out_dir: str | Path, config: dict) -> None:
+    """Write a native checkpoint (``loader.py:228-243``): the Flax-pathed
+    tree ``params`` (with or without its ``"params"`` level, e.g. from
+    ``models/convert.py::flax_tree_from_torch``) as f32 tensors under
+    ``"/".join(path)`` in ``model.safetensors``, and ``config`` as
+    ``cqs_config.json``. Either package's native loader reads it."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tensors = {"/".join(map(str, path)): torch.from_numpy(np.array(value, dtype=np.float32))
+               for path, value in flatten_tree(params).items()}
+    write_safetensors(out_dir / "model.safetensors", tensors)
+    with open(out_dir / "cqs_config.json", "w") as f:
+        json.dump(config, f, indent=1)
 
 
 def load_native_checkpoint(model_dir: str | Path, template: Mapping[str, torch.Tensor]

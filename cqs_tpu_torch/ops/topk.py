@@ -343,6 +343,8 @@ class SplitScanKernel(ScanKernel):
     def __init__(self, name: str, kind: str, replaces: str):
         super().__init__(name, kind, grouped=False, replaces=replaces)
         self.symbol = f"cqs_scan_topk_loop_split_{kind}"
+        #: ``launches`` by row width: {width: launches}
+        self.launches_by_width: dict[int, int] = {}
 
     def __call__(self, index: torch.Tensor, queries: torch.Tensor,
                  mask: torch.Tensor, tile_n: int, m: int):
@@ -374,6 +376,7 @@ class SplitScanKernel(ScanKernel):
         if err != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {err}")
         self.launches += 1
+        self.launches_by_width[d] = self.launches_by_width.get(d, 0) + 1
         return vals, rows
 
 

@@ -36,8 +36,9 @@ unfiltered queries on the dense index; a refresh tombstones its rows and
 inserts into the tiered delta, or rebuilds a plain graph, under the same two
 locks. The worktree overlay (``search(..., use_overlay=True)``) masks the
 dirty files' rows and merges hits from an ephemeral ``DenseIndex`` of their
-current content (``store/overlay.py``). Not ported (they raise or are
-absent): mesh sharding and tiered serving.
+current content (``store/overlay.py``). :class:`TieredServing` routes
+whole queries by router category to a second slot's engine (a distilled
+tier). Not ported (it raises or is absent): mesh sharding.
 """
 
 from __future__ import annotations
@@ -1499,3 +1500,39 @@ class SearchEngine:
         for rank, c in enumerate(reranked):
             c.boosts["rerank_pos"] = rank
         return reranked + cands[self.lim.rerank_pool:]
+
+
+class TieredServing:
+    """Adaptive dual-TIER routing (``engine.py:1632-1670``): whole queries go
+    to a second engine (a side-by-side slot serving another embedder, e.g. a
+    distilled neural tier) when their router category is in ``categories``,
+    else to the default engine.
+
+    Off unless ``tier_slot`` and ``tier_categories`` are configured. Every
+    other attribute (the rrf and overlay search variants, the indexes, the
+    caches, refresh) is the default engine's: the tier covers the primary
+    ``search`` path, and a warm daemon's refresh touches the default tier
+    alone (the tier slot is a side-by-side index with its own lifecycle).
+    The port's ``QueryBatcher`` asks :meth:`engine_for` and batches each
+    query on its own tier's engine, so a batched query gets its solo answer
+    (the reference's batcher runs every batched query on the default
+    engine's indexes).
+    """
+
+    def __init__(self, default_engine: SearchEngine, tier_engine: SearchEngine,
+                 categories: set[str]):
+        self._default = default_engine
+        self._tier = tier_engine
+        self._categories = frozenset(categories)
+
+    def engine_for(self, query: str) -> SearchEngine:
+        """The engine that answers ``query``: the tier's when the router
+        puts it in one of the tier's categories."""
+        cat = classify_query(query).category.value
+        return self._tier if cat in self._categories else self._default
+
+    def search(self, query: str, **kw):
+        return self.engine_for(query).search(query, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self._default, name)

@@ -64,6 +64,8 @@ COPIES = (
     # the JSONL and MCP surfaces reach the engine only through the context
     # they are given: their text needs no change beyond the rename
     "daemon/batch.py", "daemon/mcp.py",
+    # training data and teacher labels: host code over the store and the engine
+    "train/__init__.py", "train/data.py", "train/distill.py",
 )
 #: Modules at a reference path that are ports, not copies: they run the
 #: device work on PyTorch, or (``native/__init__.py``, the one exception to
@@ -81,6 +83,7 @@ PORTED = (
     "models/bert.py", "models/gemma.py", "models/hybrid.py", "models/loader.py",
     "models/reranker.py",
     "index/graph.py", "index/tiered.py", "store/overlay.py", "ops/project2d.py",
+    "parallel/__init__.py", "parallel/train.py",
 )
 
 #: The one copy that differs from its original, ``store/store.py``, and all
@@ -183,7 +186,8 @@ FOREIGN = ("jax", "jaxlib", "flax", "optax", "safetensors", "transformers", "tok
 MODEL_SOURCES = ("models/__init__.py", "models/bert.py", "models/convert.py",
                  "models/embedder.py", "models/gemma.py", "models/hybrid.py",
                  "models/layers.py", "models/loader.py", "models/reranker.py",
-                 "models/splade.py", "search/engine.py", "cli/context.py", "cli/commands.py")
+                 "models/splade.py", "search/engine.py", "cli/context.py", "cli/commands.py",
+                 "parallel/train.py")
 
 
 def imported_roots(source: str) -> set[str]:
