@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``cqs_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--phases kernels,e2e,scale,serve,neural,graph,train]
+    python3 chip_smoke.py [--seed 0] [--phases kernels,e2e,commands,scale,serve,neural,graph,train]
 
 Phases, each fatal on error (non-zero exit, no result line):
 
@@ -36,6 +36,20 @@ Phases, each fatal on error (non-zero exit, no result line):
    the default knobs, then with ``scan_q8=1`` (q8) and ``scan_q8=2`` (sk8)
    at ``scan_q8_min_rows`` 1024 (solo and batched) and ``screen_enable=1``
    at ``screen_min_rows`` 1024 (solo; the screened program is B=1 only);
+4b. commands (run after phase 5, with launch counts of its own): the
+   ``search`` command's flags (``--rrf``, ``--pattern``, ``--no-demote``,
+   ``--expand-parent``, ``--budget``, ``--project``, ``--name-only``), the
+   agent context commands, the diff, registry and eval commands through
+   ``cli.main.main`` on a copy of the repository corpus (and a second
+   project of ``scripts/`` and ``native/`` for ``--project``): each
+   search-based command three times on the card, where it must launch the
+   split loop kernel, and once with ``--device cpu``, whose answer it must
+   equal (the same rows in the same order, every float within 1e-5); the
+   host-only commands once on the card; ``eval`` over 64 queries made from
+   the corpus's docstrings (R@1/5/20 and p50 printed with the card's name
+   and power limit); ``onboard``, ``health`` and ``scout`` asked of a
+   ``BatchContext`` by four threads while the watch loop indexes an added
+   file (no error answer);
 5. scale: a daemon-sized synthetic index (65,536 rows, the bf16 batch
    program at B=64, which scans with the split loop kernel: wall and
    device-busy time), then a synthetic 1,048,576-row index at the hash
@@ -110,9 +124,10 @@ Phases, each fatal on error (non-zero exit, no result line):
    checked).
 
 The kernels' launch counters are zeroed before phase 4 and read after
-phase 5, zeroed again before phase 6 and read after it, and again around
-phase 7, phase 8 and phase 9 (the split bf16 loop kernel must have launched
-from the socket path, the neural path, the graph path and the train path); a
+phase 5, zeroed again before phase 4b and read after it, and again around
+phase 6, phase 7, phase 8 and phase 9 (the split bf16 loop kernel must have
+launched from the commands' path, the socket path, the neural path, the
+graph path and the train path); a
 branch wrapper that
 did not launch in phases 4-5 fails the run, and so
 does a split loop kernel that did not, a search of phase 4 whose solo or
@@ -759,6 +774,304 @@ def phase_e2e(torch, dev, report):
                 report["e2e"][label] = e2e_run(dev, proj, label, batched, main)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- phase 4b: the search surface, the agent context and eval commands ----------
+
+#: the eval phase's query file: this many documented functions of the corpus
+COMMAND_QUERIES = 64
+#: (label, argv) of the commands that run ``engine.search``: each runs on the
+#: card three times (it must launch the split loop kernel) and once with
+#: ``--device cpu``, whose result it must equal. ``{q64}``, ``{q16}``, ``{diff}``
+#: and ``{out}`` name the phase's files
+SEARCH_COMMANDS = (
+    ("search --rrf", ["search", "reciprocal rank fusion of the lexical legs", "--rrf"]),
+    ("search --pattern", ["search", "walk the call graph", "--pattern", "recursion"]),
+    ("search --no-demote", ["search", "test the store upsert", "--no-demote"]),
+    ("search --expand-parent", ["search", "embedding cache lookup by content hash",
+                                "--expand-parent"]),
+    ("search --budget", ["search", "tokenize camel case identifiers", "--budget", "400"]),
+    ("search --project", ["search", "parse python source into chunks", "--project", "repo",
+                          "--project", "tools"]),
+    ("scout", ["scout", "incremental index refresh after file changes"]),
+    ("task", ["task", "add a knob for the rescore pool"]),
+    ("where", ["where", "a helper that normalizes sparse scores"]),
+    ("plan", ["plan", "add a knob for the rescore pool"]),
+    ("explain", ["explain", "classify a query into a category", "classify_query"]),
+    ("onboard concept", ["onboard", "classify a query into a category"]),
+    ("eval", ["eval", "{q64}"]),
+    ("sweep", ["sweep", "name_boost", "0", "0.2", "--pool", "{q16}", "--save", "{out}"]),
+    ("ablate", ["ablate", "{q16}", "--levers", "name_boost,sig_boost", "--save", "{out}"]),
+)
+#: the commands that read the store, the call graph, a diff or the registry
+#: (``drift`` embeds on the card): each runs once on the card
+HOST_COMMANDS = (
+    ("search --name-only", ["search", "classify", "--name-only"]),
+    ("onboard", ["onboard"]), ("related", ["related", "classify_query"]),
+    ("suggest", ["suggest"]), ("kind", ["kind", "SearchEngine"]), ("health", ["health"]),
+    ("structural", ["structural"]), ("review", ["review", "--diff-file", "{diff}"]),
+    ("impact-diff", ["impact-diff", "--diff-file", "{diff}"]),
+    ("ci", ["ci", "--diff-file", "{diff}", "--threshold", "Medium"]),
+    ("affected", ["affected", "--diff-file", "{diff}"]), ("deps", ["deps", "Store"]),
+    ("neighbors", ["neighbors", "classify_query"]), ("drift", ["drift"]),
+    ("note", ["note", "classify_query", "read on the card"]), ("notes", ["notes"]),
+    ("project list", ["project", "list"]), ("ref add", ["ref", "add", "tools", "{tools}"]),
+    ("ref list", ["ref", "list"]), ("ref remove", ["ref", "remove", "tools"]),
+)
+#: commands whose answer is text, not a JSON envelope
+TEXT_COMMANDS = {"search --budget", "sweep", "ablate", "neighbors", "note", "project list",
+                 "ref add", "ref list", "ref remove"}
+#: the analysis requests a daemon's clients send while its watch loop writes
+ANALYSIS_REQUESTS = (("onboard", {}), ("health", {}),
+                     ("scout", {"query": "incremental index refresh"}))
+
+
+def docstring_queries(index_dir: Path, n: int) -> list[dict]:
+    """A v3 query list from the corpus's own functions: each query the first
+    line of a documented function's or method's docstring (each text once),
+    its gold that function's origin and name; ``n`` of them spread evenly
+    over the corpus in (origin, line) order."""
+    from cqs_tpu_torch.search.router import classify_query
+    from cqs_tpu_torch.store import Store
+
+    store = Store.open(index_dir, readonly=True)
+    try:
+        rows = list(store.iter_chunks("chunk_type IN ('function','method') AND doc != ''"))
+    finally:
+        store.close()
+    qs, seen = [], set()
+    for r in sorted(rows, key=lambda r: (r.origin, r.line_start)):
+        line = r.doc.strip().splitlines()[0].strip() if r.doc.strip() else ""
+        if line and line not in seen:
+            seen.add(line)
+            qs.append({"query": line, "category": classify_query(line).category.value,
+                       "gold_chunk": {"origin": r.origin, "name": r.name}})
+    return qs[::max(1, len(qs) // n)][:n]
+
+
+def one_line_diff(root: Path, origin: str, func: str, added: str) -> str:
+    """A unified diff of ``origin`` that adds ``added`` two lines into the
+    module-level function ``func``."""
+    lines = (root / origin).read_text().splitlines()
+    i = next(n for n, ln in enumerate(lines) if ln.startswith(f"def {func}("))
+    return (f"diff --git a/{origin} b/{origin}\n--- a/{origin}\n+++ b/{origin}\n"
+            f"@@ -{i + 1},2 +{i + 1},3 @@\n"
+            + "".join(f" {ln}\n" for ln in lines[i:i + 2]) + f"+    {added}\n")
+
+
+def same_answer(got, want, diffs: list, path: str = "") -> str | None:
+    """None when two answers agree, else where they first differ: equal
+    structures (hits in the same order), floats within 1e-5, clock readings
+    and the device field left out. Each float's difference is appended to
+    ``diffs``."""
+    skip = {"generated_at", "elapsed_ms", "latency_ms", "device"}
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) - skip != set(want) - skip:
+            return path or "."
+        for k in sorted(set(want) - skip):
+            where = same_answer(got[k], want[k], diffs, f"{path}.{k}")
+            if where:
+                return where
+        return None
+    if isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            return path
+        for i, (a, b) in enumerate(zip(got, want)):
+            where = same_answer(a, b, diffs, f"{path}[{i}]")
+            if where:
+                return where
+        return None
+    if isinstance(want, float) and not isinstance(want, bool):
+        if not isinstance(got, (int, float)):
+            return path
+        diffs.append(abs(got - want))
+        return None if diffs[-1] <= 1e-5 else path
+    return None if got == want else path
+
+
+def same_text(got: str, want: str) -> bool:
+    """Equal lines, numbers with a fraction within one unit of their last
+    printed digit; a search header's clock reading and device name left out."""
+    import re
+
+    def norm(text):
+        return [re.sub(r" \(\d+ ms, [\w:]+\)$", "", ln) if ln.startswith("# ") else ln
+                for ln in text.splitlines()]
+
+    num = re.compile(r"[-+]?\d+\.\d+")
+    g, w = norm(got), norm(want)
+    if len(g) != len(w):
+        return False
+    for a, b in zip(g, w):
+        if num.sub("#", a) != num.sub("#", b):
+            return False
+        for x, y in zip(num.findall(a), num.findall(b)):
+            if abs(float(x) - float(y)) > 10.0 ** -len(y.split(".")[1]) + 1e-9:
+                return False
+    return True
+
+
+def phase_commands(torch, dev, report, smi: str):
+    """The ``search`` command's flags, the agent context, diff, registry and
+    eval commands through ``cli.main.main`` on the repository corpus: each
+    search-based command on the card (``LOOP_SPLIT`` must launch) and with
+    ``--device cpu`` (the same rows in the same order, scores within 1e-5);
+    the host-only commands on the card; ``eval`` over
+    64 of the corpus's docstrings; a daemon's analysis requests while its
+    watch loop writes."""
+    from cqs_tpu_torch.cli.main import main
+    from cqs_tpu_torch.ops.topk import LOOP_SPLIT
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="cqs_cmds_"))
+    out: dict = {"search": {}, "host": {}}
+    try:
+        proj, tools = tmp / "corpus", tmp / "tools"
+        proj.mkdir()
+        copy_corpus(proj)
+        tools.mkdir()
+        for name in ("scripts", "native"):
+            shutil.copytree(REPO / name, tools / name,
+                            ignore=shutil.ignore_patterns("__pycache__", "*.so", "*.srchash"))
+        (tools / ".cqs-tpu").mkdir()
+        for root in (proj, tools):
+            rc, env, ms = run_cli(main, ["index", "--path", str(root), "--device", str(dev),
+                                         "--json"])
+            if rc != 0 or env is None:
+                fail(f"commands: index of {root.name} exited {rc}")
+            out.setdefault("index_s", {})[root.name] = ms / 1e3
+        qs = docstring_queries(proj / ".cqs-tpu", COMMAND_QUERIES)
+        if len(qs) != COMMAND_QUERIES:
+            fail(f"commands: {len(qs)} docstring queries, not {COMMAND_QUERIES}")
+        files = {"q64": tmp / "q64.v3.json", "q16": tmp / "q16.v3.json",
+                 "diff": tmp / "change.diff", "tools": tools}
+        files["q64"].write_text(json.dumps({"queries": qs}))
+        files["q16"].write_text(json.dumps({"queries": qs[:16]}))
+        files["diff"].write_text(one_line_diff(proj, "cqs_tpu/search/router.py",
+                                               "classify_query", "audit(query)"))
+        with knobs({"XDG_DATA_HOME": str(tmp / "xdg")}):
+            for name, root in (("repo", proj), ("tools", tools)):
+                if main(["project", "add", name, str(root), "--path", str(proj),
+                         "--device", str(dev)]) != 0:
+                    fail(f"commands: project add {name} failed")
+
+            def call(label: str, argv: list[str], device: str, n: int):
+                argv = [a.format(**files, out=tmp / f"{device}_out.json") for a in argv]
+                argv += ["--path", str(proj), "--device", device]
+                text = label in TEXT_COMMANDS
+                runs = [run_cli_text(main, argv) if text else run_cli(main, argv + ["--json"])
+                        for _ in range(n)]
+                rc, answer = runs[-1][0], runs[-1][1]
+                if label in ("sweep", "ablate"):
+                    answer = json.loads((tmp / f"{device}_out.json").read_text())
+                return rc, answer, statistics.median(r[2] for r in runs)
+
+            for label, argv in SEARCH_COMMANDS:
+                n = 1 if label in ("eval", "sweep", "ablate") else 3
+                before = LOOP_SPLIT.launches
+                rc, card, ms = call(label, argv, str(dev), n)
+                launched = LOOP_SPLIT.launches - before
+                if rc != 0 or card is None:
+                    fail(f"commands: {label} on the card exited {rc}")
+                if dev.type == "cuda" and launched == 0:
+                    fail(f"commands: {label} did not launch {LOOP_SPLIT.name}")
+                rc, cpu, cpu_ms = call(label, argv, "cpu", 1)
+                if rc != 0 or cpu is None:
+                    fail(f"commands: {label} with --device cpu exited {rc}")
+                diffs: list = []
+                if label in TEXT_COMMANDS and label not in ("sweep", "ablate"):
+                    where = None if same_text(card, cpu) else "text"
+                else:
+                    where = same_answer(card, cpu, diffs, label)
+                if where:
+                    fail(f"commands: {label} on the card differs from --device cpu at {where}")
+                out["search"][label] = {"launches": launched, "runs": n, "ms": ms,
+                                        "cpu_ms": cpu_ms, "max_abs_diff": max(diffs, default=0.0)}
+                print(f"commands: {label}: card == cpu (floats within "
+                      f"{max(diffs, default=0.0):.2e}), {LOOP_SPLIT.name} {launched} "
+                      f"launches in {n} run(s), median {ms:.1f} ms a CLI call "
+                      f"(cpu {cpu_ms:.1f} ms)")
+                if label == "eval":
+                    rep = card["results"]
+                    r, p = rep["recall"], rep["latency_ms"]
+                    out["eval"] = {"total": rep["total"], **r, **p,
+                                   "skipped_missing": rep["skipped_missing"],
+                                   "cpu_latency_ms": cpu["results"]["latency_ms"]}
+                    print(f"commands: eval on the card over {rep['total']} docstring queries "
+                          f"({rep['skipped_missing']} gold not extracted): R@1 {r['r@1']} "
+                          f"R@5 {r['r@5']} R@20 {r['r@20']}, p50 {p['p50']} ms, p95 "
+                          f"{p['p95']} ms (cpu p50 {cpu['results']['latency_ms']['p50']} ms); "
+                          f"{smi}")
+            for label, argv in HOST_COMMANDS:
+                rc, answer, ms = call(label, argv, str(dev), 1)
+                if rc not in ((0, 3) if label == "ci" else (0,)) or answer is None:
+                    fail(f"commands: {label} on the card exited {rc}")
+                out["host"][label] = {"rc": rc, "ms": ms}
+            print(f"commands: {len(HOST_COMMANDS)} host commands on the card, rc 0 "
+                  f"(ci {out['host']['ci']['rc']}): "
+                  + ", ".join(f"{k} {v['ms']:.0f} ms" for k, v in out["host"].items()))
+        out["analysis_under_writes"] = analysis_under_writes(dev, proj)
+        out["phase_s"] = time.perf_counter() - t_phase
+        print(f"commands: the phase took {out['phase_s']:.1f} s; {smi}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["commands"] = out
+
+
+def analysis_under_writes(dev, proj: Path, clients: int = 4) -> dict:
+    """A daemon's client threads ask its dispatch table for ``onboard``,
+    ``health`` and ``scout`` while the watch loop, on the store's home
+    thread, indexes an added file and refreshes the engine. Any error
+    answer fails the run."""
+    import threading
+
+    from cqs_tpu_torch.cli.context import CommandContext
+    from cqs_tpu_torch.daemon.dispatch import BatchContext
+    from cqs_tpu_torch.daemon.watch import WatchLoop
+
+    ctx = CommandContext.create(str(proj), device=dev)
+    _ = ctx.store, ctx.engine                # opened on this, the watch loop's, thread
+    bctx = BatchContext(ctx)
+    stop = threading.Event()
+    errors: list = []
+    answers = [0] * clients
+
+    def client(k: int) -> None:
+        try:
+            while not stop.is_set() or answers[k] < len(ANALYSIS_REQUESTS):
+                for command, args in ANALYSIS_REQUESTS:
+                    resp = bctx.dispatch(command, args)
+                    if "error" in resp:
+                        errors.append((command, resp["error"]))
+                        return
+                    answers[k] += 1
+        except BaseException as e:           # reported by the main thread
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    try:
+        for t in threads:
+            t.start()
+        (proj / "docs" / "added_while_asked.py").write_text(ADDED_FILE)
+        t0 = time.perf_counter()
+        changed = WatchLoop(ctx).reconcile_once()
+        reconcile_s = time.perf_counter() - t0
+        stop.set()
+        for t in threads:
+            t.join(timeout=300)
+        if any(t.is_alive() for t in threads):
+            fail("commands: a client thread did not finish")
+        if errors:
+            fail(f"commands: analysis answers under writes: {errors[:3]}")
+        if changed != 1:
+            fail(f"commands: the watch loop saw {changed} changed files, not 1")
+    finally:
+        stop.set()
+        bctx.close()
+        ctx.close()
+    print(f"commands: {sum(answers)} onboard/health/scout answers from {clients} client "
+          f"threads while the watch loop indexed a file ({reconcile_s:.2f} s), no error")
+    return {"answers": sum(answers), "reconcile_s": reconcile_s}
 
 
 # -- phase 5: a 1M-row index at the hash tier's widths --------------------------
@@ -2746,7 +3059,7 @@ def phase_train(torch, dev, report, smi: str, recipes=TRAIN_RECIPES, max_pairs: 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="kernels,e2e,scale,serve,neural,graph,train")
+    ap.add_argument("--phases", default="kernels,e2e,commands,scale,serve,neural,graph,train")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not (REPO / "cqs_tpu_torch" / "__init__.py").is_file():
@@ -2795,6 +3108,17 @@ def main() -> int:
         for k in (*KERNELS, LOOP_SPLIT, LOOP_SPLIT_I8):
             if k.launches == 0:
                 fail(f"kernel {k.name} was not launched on the main path")
+    # the ported commands' path: zeroed just before, read just after
+    for k in IMPLS:
+        k.launches = 0
+    if "commands" in phases:
+        phase_commands(torch, dev, report, smi)
+    torch.cuda.synchronize()
+    commands_launches = {k.name: k.launches for k in IMPLS}
+    if "commands" in phases:
+        print(f"launches on the commands' path: {commands_launches}")
+        if LOOP_SPLIT.launches == 0:
+            fail(f"kernel {LOOP_SPLIT.name} was not launched on the commands' path")
     # the daemon's path has its own count: zeroed just before, read just after
     for k in IMPLS:
         k.launches = 0
@@ -2857,10 +3181,11 @@ def main() -> int:
         bound = bound_ms(k.kind, *case[:2], case[3], case[2], case[4])
         kernels.append({"name": k.name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces,
-                        "launches": (launches[k.name] + serve_launches[k.name]
-                                     + neural_launches[k.name] + graph_launches[k.name]
-                                     + train_launches[k.name]),
+                        "launches": (launches[k.name] + commands_launches[k.name]
+                                     + serve_launches[k.name] + neural_launches[k.name]
+                                     + graph_launches[k.name] + train_launches[k.name]),
                         "main_path_launches": launches[k.name],
+                        "commands_path_launches": commands_launches[k.name],
                         "daemon_path_launches": serve_launches[k.name],
                         "neural_path_launches": neural_launches[k.name],
                         "graph_path_launches": graph_launches[k.name],

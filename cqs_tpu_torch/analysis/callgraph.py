@@ -218,25 +218,25 @@ def find_dead_code(store: Store, graph: CallGraph | None = None) -> list[dict]:
     graph = graph or CallGraph.for_store(store)
     out: list[dict] = []
     strong_called: set[str] = {
-        r[0] for r in store.db.execute(
+        r[0] for r in store._read_db().execute(
             "SELECT DISTINCT callee_name FROM function_calls "
             "WHERE kind IN ('call', 'method_call')")}
     weak_called: dict[str, str] = {}
-    for name, kind in store.db.execute(
+    for name, kind in store._read_db().execute(
             "SELECT DISTINCT callee_name, kind FROM function_calls "
             "WHERE kind IN ('macro_heuristic', 'fn_pointer')"):
         weak_called.setdefault(name, kind)
     doc_referenced: set[str] = {
-        r[0] for r in store.db.execute(
+        r[0] for r in store._read_db().execute(
             "SELECT DISTINCT callee_name FROM function_calls "
             "WHERE kind = 'doc_reference'")}
     # dynamic-dispatch shield: names declared on interfaces/traits/protocols
     interface_members: set[str] = {
-        r[0] for r in store.db.execute(
+        r[0] for r in store._read_db().execute(
             "SELECT DISTINCT name FROM chunks WHERE parent_name IN "
             "(SELECT name FROM chunks WHERE chunk_type IN ('interface', 'trait'))")}
     interface_members |= {
-        r[0] for r in store.db.execute(
+        r[0] for r in store._read_db().execute(
             "SELECT DISTINCT c2.name FROM chunks c1 JOIN chunks c2 "
             "ON c2.parent_name = c1.name WHERE c1.chunk_type = 'interface'")}
 
@@ -251,7 +251,7 @@ def find_dead_code(store: Store, graph: CallGraph | None = None) -> list[dict]:
             return False           # short single words match everything
         phrase = '"' + " ".join(toks[:6]) + '"'
         try:
-            hits = store.db.execute(
+            hits = store._read_db().execute(
                 "SELECT id FROM chunks_fts_body WHERE chunks_fts_body MATCH ? "
                 "LIMIT 8", (phrase,)).fetchall()
         except Exception:

@@ -90,7 +90,7 @@ def scout(engine, query: str, limit: int = 8) -> dict:
     files = Counter(h.row.origin for h in hits)
     types_used: Counter[str] = Counter()
     for h in hits[:limit]:
-        for (tname,) in store.db.execute(
+        for (tname,) in store._read_db().execute(
                 "SELECT type_name FROM type_edges WHERE chunk_id = ?", (h.row.id,)):
             types_used[tname] += 1
     graph = CallGraph.for_store(store)
@@ -231,7 +231,7 @@ def suggest_placement(engine, description: str, limit: int = 5) -> list[dict]:
             # insert right after the nearest related function, not at EOF
             "insertion_line": best.row.line_end + 1,
             "near_function": best.row.qualified_name,
-            "append_after_line": store.db.execute(
+            "append_after_line": store._read_db().execute(
                 "SELECT MAX(line_end) FROM chunks WHERE origin = ?",
                 (origin,)).fetchone()[0] or 0,
             "reason": reason,
@@ -260,7 +260,7 @@ def find_related(store: Store, name: str, limit: int = 10) -> list[dict]:
         return []
     target = targets[0]
     t_base = target.name.split("#w")[0]
-    db = store.db
+    db = store._read_db()
 
     def q(sql, params):
         return db.execute(sql, list(params)).fetchall()
@@ -369,7 +369,7 @@ def suggest_refactors(store: Store, limit: int = 20) -> list[dict]:
                         "origin": row.origin, "line_start": row.line_start,
                         "detail": f"{span} lines — consider splitting"})
     fanout = Counter()
-    for caller_id, in store.db.execute(
+    for caller_id, in store._read_db().execute(
             "SELECT caller_id FROM function_calls"):
         fanout[caller_id] += 1
     for cid, n in fanout.most_common(10):
@@ -379,7 +379,7 @@ def suggest_refactors(store: Store, limit: int = 20) -> list[dict]:
                 out.append({"kind": "high_fanout", "name": row.qualified_name,
                             "origin": row.origin, "line_start": row.line_start,
                             "detail": f"calls {n} distinct sites — high coupling"})
-    dupes = store.db.execute(
+    dupes = store._read_db().execute(
         "SELECT canonical_hash, COUNT(*), GROUP_CONCAT(name) FROM chunks "
         "WHERE chunk_type IN ('function','method') AND LENGTH(body) > 120 "
         "GROUP BY canonical_hash HAVING COUNT(*) > 1").fetchall()
@@ -399,13 +399,13 @@ def onboard(store: Store, limit: int = 10) -> dict:
     functions, key types, doc sections."""
     stats = store.stats()
     file_sizes = Counter()
-    for (origin, n) in store.db.execute(
+    for (origin, n) in store._read_db().execute(
             "SELECT origin, COUNT(*) FROM chunks GROUP BY origin"):
         file_sizes[origin] = n
-    most_called = store.db.execute(
+    most_called = store._read_db().execute(
         "SELECT callee_name, COUNT(DISTINCT caller_id) AS n FROM function_calls "
         "GROUP BY callee_name ORDER BY n DESC LIMIT ?", (limit,)).fetchall()
-    key_types = store.db.execute(
+    key_types = store._read_db().execute(
         "SELECT type_name, COUNT(*) AS n FROM type_edges GROUP BY type_name "
         "ORDER BY n DESC LIMIT ?", (limit,)).fetchall()
     graph = CallGraph.for_store(store)
@@ -424,14 +424,14 @@ def onboard(store: Store, limit: int = 10) -> dict:
     # HTTP/RPC endpoints: chunks whose body carries a language's endpoint
     # marker (ref: LanguageDef endpoint markers)
     endpoints = []
-    langs_present = {r[0] for r in store.db.execute(
+    langs_present = {r[0] for r in store._read_db().execute(
         "SELECT DISTINCT language FROM chunks")}
     for lname in sorted(langs_present):
         lang = get_language(lname)
         if not lang or not lang.endpoint_markers:
             continue
         conds = " OR ".join("body LIKE ?" for _ in lang.endpoint_markers)
-        rows = store.db.execute(
+        rows = store._read_db().execute(
             f"SELECT name, origin, line_start FROM chunks WHERE language = ? "
             f"AND chunk_type IN ('function','method') AND ({conds}) "
             f"ORDER BY origin, line_start LIMIT ?",
@@ -527,7 +527,7 @@ def onboard_concept(engine, concept: str, depth: int = 3,
     for lo in range(0, len(scope_ids), 500):
         part = scope_ids[lo:lo + 500]
         q = ",".join("?" * len(part))
-        for (tname,) in store.db.execute(
+        for (tname,) in store._read_db().execute(
                 f"SELECT type_name FROM type_edges WHERE chunk_id IN ({q})",
                 part):
             if tname not in common:

@@ -133,20 +133,20 @@ def run_audit(store, root: str | Path) -> dict:
     root = Path(root)
     by_lang: dict[str, dict] = defaultdict(
         lambda: {"decls": 0, "matched": 0, "files": 0, "worst": []})
-    origins = [r[0] for r in store.db.execute(
+    origins = [r[0] for r in store._read_db().execute(
         "SELECT DISTINCT origin FROM chunks")]
     for origin in sorted(origins):
         p = root / origin
         if not p.is_file():
             continue
-        lang_row = store.db.execute(
+        lang_row = store._read_db().execute(
             "SELECT language FROM chunks WHERE origin = ? LIMIT 1", (origin,)).fetchone()
         lang_name = lang_row[0] if lang_row else None
         if lang_name not in _SCANNERS:
             continue
-        idx_names = {r[0].split("#w")[0] for r in store.db.execute(
+        idx_names = {r[0].split("#w")[0] for r in store._read_db().execute(
             "SELECT name FROM chunks WHERE origin = ?", (origin,))}
-        qual = {r[0] for r in store.db.execute(
+        qual = {r[0] for r in store._read_db().execute(
             "SELECT parent_name || '.' || name FROM chunks "
             "WHERE origin = ? AND parent_name IS NOT NULL", (origin,))}
         try:
@@ -432,7 +432,7 @@ def audit_calls_rust(store, root: str | Path, max_files: int = 400) -> dict:
     files = 0
     worst: list[dict] = []
     kind_confusion: dict[str, int] = defaultdict(int)
-    origins = [r[0] for r in store.db.execute(
+    origins = [r[0] for r in store._read_db().execute(
         "SELECT DISTINCT origin FROM chunks WHERE language = 'rust' "
         "ORDER BY origin")][:max_files]
     for origin in origins:
@@ -449,7 +449,7 @@ def audit_calls_rust(store, root: str | Path, max_files: int = 400) -> dict:
             continue
         files += 1
         gt_calls = rust_call_ground_truth(text)
-        spans = list(store.db.execute(
+        spans = list(store._read_db().execute(
             "SELECT id, name, line_start, line_end FROM chunks "
             "WHERE origin = ? AND chunk_type IN ('function','method','test') "
             "AND parent_id IS NULL", (origin,)))
@@ -508,7 +508,7 @@ def audit_calls_python(store, root: str | Path, max_files: int = 200) -> dict:
     tp = fp = fn_ = 0
     files = 0
     worst: list[dict] = []
-    origins = [r[0] for r in store.db.execute(
+    origins = [r[0] for r in store._read_db().execute(
         "SELECT DISTINCT origin FROM chunks WHERE language = 'python' "
         "ORDER BY origin")][:max_files]
     for origin in origins:
@@ -528,7 +528,7 @@ def audit_calls_python(store, root: str | Path, max_files: int = 200) -> dict:
                         else f.attr if isinstance(f, ast_mod.Attribute) else None)
                 if name:
                     gt_calls.append((name, node.lineno))
-        spans = list(store.db.execute(
+        spans = list(store._read_db().execute(
             "SELECT id, name, line_start, line_end FROM chunks "
             "WHERE origin = ? AND chunk_type IN ('function','method','test') "
             "AND parent_id IS NULL", (origin,)))

@@ -158,13 +158,13 @@ def health_report(store: Store, root: Path) -> dict:
                 stale.append(origin)
         except OSError:
             stale.append(origin)
-    hotspots = store.db.execute(
+    hotspots = store._read_db().execute(
         "SELECT callee_name, COUNT(DISTINCT caller_id) AS n FROM function_calls "
         "GROUP BY callee_name ORDER BY n DESC LIMIT 10").fetchall()
     dead = find_dead_code(store)
     notes = store.notes_for()
     warnings = [n for n in notes if n[3] in ("warning", "negative", "todo")]
-    errors = store.db.execute(
+    errors = store._read_db().execute(
         "SELECT origin, parse_errors FROM file_registry WHERE parse_errors IS NOT NULL"
     ).fetchall()
     return {

@@ -10,6 +10,7 @@ dispatches through: a reference command that is not in it is not ported yet.
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 import time
@@ -87,6 +88,19 @@ def _parse_chunk_types(args):
 
 
 def cmd_search(ctx: CommandContext, args) -> int:
+    if args.projects:
+        # other registered projects, each opened on this command's device
+        from cqs_tpu_torch.store.projects import cross_project_search
+
+        results = cross_project_search(args.projects, args.query, limit=args.limit,
+                                       device=ctx.device)
+        if args.json:
+            emit(envelope("search", results, meta={"device": str(ctx.device)}), True)
+        else:
+            for h in results:
+                _print(f"{h['score']:6.3f}  [{h['project']}] {h['origin']}:{h['line_start']}  "
+                       f"{h['name']}")
+        return 0
     if not Path(ctx.index_dir).exists() or ctx.store.chunk_count() == 0:
         msg = "no index found — run `python -m cqs_tpu_torch index` first"
         if args.json:
@@ -99,40 +113,123 @@ def cmd_search(ctx: CommandContext, args) -> int:
     except ValueError as e:
         print(str(e), file=sys.stderr)
         return 2
+    if args.name_only:
+        # the forced FTS name lookup: the store alone, no device program
+        rows = ctx.store.search_by_name_fts(args.query, limit=args.limit)
+        if args.json:
+            emit(envelope("search", [{"name": r.qualified_name, "origin": r.origin,
+                                      "line_start": r.line_start,
+                                      "chunk_type": r.chunk_type}
+                                     for r in rows]), True)
+        else:
+            for r in rows:
+                _print(f"{r.origin}:{r.line_start}  {r.qualified_name}  [{r.chunk_type}]")
+        return 0
     eng = ctx.engine
-    prior = os.environ.get("CQST_SCORE_THRESHOLD")
+    knob_env = {}
     if args.threshold is not None:
-        os.environ["CQST_SCORE_THRESHOLD"] = str(args.threshold)
+        knob_env["CQST_SCORE_THRESHOLD"] = str(args.threshold)
+    if args.no_demote:
+        for k in ("TEST_DEMOTION", "VENDORED_DEMOTION", "DATA_DEMOTION", "DOC_DEMOTION"):
+            knob_env[f"CQST_{k}"] = "0"
+    fetch = args.limit * 3 if args.pattern else args.limit   # the pattern filter's over-fetch
+    prior = {k: os.environ.get(k) for k in knob_env}
+    os.environ.update(knob_env)
     try:
-        res = eng.search(args.query, limit=args.limit, path_filter=args.path_filter,
-                         lang_filter=args.lang, alpha_override=args.alpha,
-                         chunk_types=chunk_types, rerank=args.rerank,
-                         use_overlay=args.worktree, include_docs=args.include_docs)
+        if args.rrf:
+            res = eng.search_with_rrf(args.query, limit=fetch, path_filter=args.path_filter,
+                                      lang_filter=args.lang, chunk_types=chunk_types,
+                                      include_docs=args.include_docs)
+        else:
+            res = eng.search(args.query, limit=fetch, path_filter=args.path_filter,
+                             lang_filter=args.lang, alpha_override=args.alpha,
+                             chunk_types=chunk_types, rerank=args.rerank,
+                             use_overlay=args.worktree, include_docs=args.include_docs)
     finally:
-        if args.threshold is not None:
-            if prior is None:
-                os.environ.pop("CQST_SCORE_THRESHOLD", None)
+        for k, v in prior.items():
+            if v is None:
+                os.environ.pop(k, None)
             else:
-                os.environ["CQST_SCORE_THRESHOLD"] = prior
+                os.environ[k] = v
+    if args.pattern:
+        from cqs_tpu_torch.analysis.quality import match_pattern
+        from cqs_tpu_torch.search.engine import SearchResult
+
+        kept = [h for h in res.hits
+                if match_pattern(args.pattern, h.row.body, h.row.name,
+                                 h.row.language)][: args.limit]
+        # a fresh result: res.hits may be the engine's cached list
+        res = SearchResult(kept, res.category, res.strategy, res.alpha,
+                           res.elapsed_ms, dict(res.meta, pattern=args.pattern))
+    # --expand-parent: each hit's containing type or module, resolved by name
+    # within the hit's own file, once per (file, parent) in the batch
+    parents: dict[str, dict] = {}
+    if args.expand_parent:
+        cache: dict[tuple[str, str], dict | None] = {}
+        for h in res.hits:
+            pn = h.row.parent_name
+            if not pn:
+                continue
+            key = (h.row.origin, pn)
+            if key not in cache:
+                cache[key] = None
+                for prow in ctx.store.find_by_name(pn):
+                    if prow.origin == h.row.origin and not prow.parent_id:
+                        cache[key] = {"name": prow.qualified_name,
+                                      "chunk_type": prow.chunk_type,
+                                      "line_start": prow.line_start,
+                                      "signature": prow.signature}
+                        break
+            if cache[key] is not None:
+                parents[h.row.id] = cache[key]
     record_telemetry(ctx.index_dir, "search", args.query, len(res.hits))
     if args.json:
         emit(envelope("search", [h.to_dict(include_body=args.body) for h in res.hits],
                       meta={**staleness_meta(ctx.store, ctx.root),
                             "category": res.category, "strategy": res.strategy,
                             "alpha": res.alpha, "elapsed_ms": round(res.elapsed_ms, 2),
-                            "device": str(ctx.device)}), True)
+                            "device": str(ctx.device)},
+                      **({"parents": parents} if parents else {})), True)
         return 0
     _print(f"# {res.category} / {res.strategy} / alpha={res.alpha:.2f} "
            f"({res.elapsed_ms:.0f} ms, {ctx.device})")
+    if args.budget:
+        _pack_budget(ctx, [(h.row, h.score) for h in res.hits], args.budget)
+        return 0
     for h in res.hits:
         _print(f"{h.score:6.3f}  {h.row.origin}:{h.row.line_start}  "
                f"{h.row.qualified_name}  [{h.row.chunk_type}]")
+        p = parents.get(h.row.id)
+        if p:
+            _print(f"        in {p['chunk_type']} {p['name']} (line {p['line_start']})")
         if args.body:
             for line in h.row.body.splitlines()[:20]:
                 _print(f"        {line}")
     if not res.hits:
         _print("(no results)")
     return 0
+
+
+def _pack_budget(ctx: CommandContext, rows_scores: list, budget: int) -> None:
+    """Token-budget packing: whole bodies best-first until the budget runs
+    out, then signatures only (``cqs_tpu/cli/commands.py:2102-2121``)."""
+    used = 0
+    count = ctx.embedder.token_count
+    for row, score in rows_scores:
+        header = (f"== {score:6.3f} {row.origin}:{row.line_start}-{row.line_end}  "
+                  f"{row.qualified_name}")
+        cost = count(row.body) + 10
+        if used + cost <= budget:
+            _print(header)
+            _print(row.body)
+            used += cost
+        else:
+            _print(f"{header}  [signature only — budget]")
+            _print(f"   {row.signature}")
+            used += count(row.signature) + 10
+        if used >= budget:
+            _print(f"(budget {budget} tokens reached)")
+            break
 
 
 # ---------------------------------------------------------------------------
@@ -317,6 +414,44 @@ def cmd_similar(ctx: CommandContext, args) -> int:
     return 0
 
 
+def cmd_deps(ctx: CommandContext, args) -> int:
+    users = ctx.store.type_users(args.name)
+    if args.json:
+        emit(envelope("deps", [
+            {"name": u.qualified_name, "origin": u.origin, "line_start": u.line_start}
+            for u in users]), True)
+        return 0
+    for u in users:
+        _print(f"{u.origin}:{u.line_start}  {u.qualified_name}")
+    if not users:
+        _print(f"(no chunks reference type {args.name!r})")
+    return 0
+
+
+def cmd_neighbors(ctx: CommandContext, args) -> int:
+    rows = ctx.store.find_by_name(args.name)
+    if not rows:
+        _print(f"(unknown chunk {args.name!r})")
+        return 1
+    row = rows[0]
+    siblings = sorted(ctx.store.iter_chunks(
+        "origin = ? AND chunk_type != 'window'", (row.origin,)),
+        key=lambda r: r.line_start)
+    idx = next((i for i, s in enumerate(siblings) if s.id == row.id), None)
+    if idx is not None:
+        for j in range(max(0, idx - 2), min(len(siblings), idx + 3)):
+            s = siblings[j]
+            _print(f"{'>' if j == idx else ' '} {s.origin}:{s.line_start}-{s.line_end}  "
+                   f"{s.qualified_name} [{s.chunk_type}]")
+    return 0
+
+
+def cmd_note(ctx: CommandContext, args) -> int:
+    nid = ctx.store.add_note(args.target, args.text, args.sentiment)
+    _print(f"note #{nid} added on {args.target!r}")
+    return 0
+
+
 def cmd_notes(ctx: CommandContext, args) -> int:
     notes = ctx.store.notes_for(args.target)
     if args.json:
@@ -337,9 +472,519 @@ def cmd_gather(ctx: CommandContext, args) -> int:
     if args.json:
         emit(envelope("gather", [it.as_dict() for it in items]), True)
         return 0
+    if args.budget:
+        _pack_budget(ctx, [(it.row, it.score) for it in items], args.budget)
+        return 0
     for it in items:
         _print(f"{it.score:6.3f} [{it.via:9}] {it.row.origin}:{it.row.line_start}-"
                f"{it.row.line_end}  {it.row.qualified_name}")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# context, analysis and diff commands: the analysis functions the daemon's
+# dispatch table calls (``daemon/dispatch.py``), in-process
+# ---------------------------------------------------------------------------
+
+def _emit_or_render(args, command: str, data, render) -> int:
+    if args.json:
+        emit(envelope(command, data), True)
+    else:
+        render(data)
+    return 0
+
+
+def cmd_scout(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.analysis.context import scout
+
+    data = scout(ctx.engine, args.query)
+
+    def render(d):
+        _print(f"# scout: {d['query']}")
+        for c in d["top_chunks"]:
+            marks = (f"[{c.get('role', '?'):13}] callers={c.get('caller_count', 0)} "
+                     f"tests={c.get('test_count', 0)}")
+            _print(f"  {c['score']:6.3f} {marks} {c['origin']}:{c['line_start']}  {c['name']}")
+        s = d.get("summary")
+        if s:
+            _print(f"summary: {s['total_functions']} fns / {s['total_files']} files, "
+                   f"{s['untested_count']} untested, {s['stale_count']} stale files")
+        if d["key_types"]:
+            _print("types: " + ", ".join(f"{t['type']}({t['uses']})" for t in d["key_types"]))
+        if d["files"]:
+            _print("files: " + ", ".join(f"{f['origin']}" for f in d["files"][:5]))
+        for e in d["entry_paths"]:
+            _print(f"entry: {e['entry']} -> {e['reaches']}")
+
+    return _emit_or_render(args, "scout", data, render)
+
+
+def cmd_task(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.analysis.context import task_brief
+
+    data = task_brief(ctx.engine, args.description)
+
+    def render(d):
+        _print(f"# task [{d['template']}]: {d['description']}")
+        _print("## reading order")
+        for it in d["reading_order"]:
+            _print(f"  {it['origin']}:{it['line_start']}-{it['line_end']}  {it['name']} "
+                   f"[{it['via']}]")
+        _print("## placement")
+        for p in d["placement"]:
+            _print(f"  {p['origin']}  affinity={p['affinity']}")
+        _print("## impact")
+        for i in d["impact"]:
+            _print(f"  {i['name']}: risk={i['risk']} callers={i['callers']} tests={i['tests']}")
+
+    return _emit_or_render(args, "task", data, render)
+
+
+def cmd_onboard(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.analysis.context import onboard, onboard_concept
+
+    if args.concept:
+        data = onboard_concept(ctx.engine, args.concept, depth=args.depth,
+                               direction=args.direction)
+        if args.json:
+            emit(envelope("onboard", data), True)
+            return 0
+        if "error" in data:
+            _print(f"{data['error']}; closest hits:")
+            for h in data.get("top_hits", []):
+                _print(f"  {h['origin']}  {h['name']}")
+            return 1
+        e = data["entry_point"]
+        _print(f"# concept tour: {data['concept']}")
+        _print(f"entry point: {e['origin']}:{e['line']}  {e['name']}")
+        _print(f"  {e['signature']}")
+        _print(f"## call chain (depth {data['summary']['callee_depth']})")
+        for c in data["call_chain"]:
+            _print(f"  {'  ' * c['depth']}{c['origin']}:{c['line']}  {c['name']}")
+        _print("## callers")
+        for c in data["callers"]:
+            _print(f"  {c['origin']}:{c['line']}  {c['name']}")
+        if data["key_types"]:
+            _print("## key types")
+            for t in data["key_types"][:12]:
+                _print(f"  {t['type']} ({t['uses']} uses)")
+        if data["tests"]:
+            _print("## tests")
+            for t in data["tests"][:10]:
+                _print(f"  {t['origin']}  {t['name']}")
+        s = data["summary"]
+        trunc = ", ".join(f"{k}={v}" for k, v in s.items()
+                          if k.endswith("_truncated") and v)
+        _print(f"{s['total_items']} items over {s['files_covered']} files"
+               + (f" (truncated: {trunc})" if trunc else ""))
+        return 0
+    data = onboard(ctx.store)
+
+    def render(d):
+        _print(f"# repo tour: {d['stats']['chunks']} chunks / {d['stats']['files']} files")
+        _print("languages: " + ", ".join(f"{k}({v})" for k, v in d["stats"]["languages"].items()))
+        _print("## largest files")
+        for f in d["largest_files"][:6]:
+            _print(f"  {f['origin']} ({f['chunks']} chunks)")
+        _print("## most-called")
+        for m in d["most_called"][:6]:
+            _print(f"  {m['name']} <- {m['callers']} callers")
+        _print("## entry points")
+        for e in d["entry_points"][:6]:
+            _print(f"  {e['name']} ({e['origin']})")
+
+    return _emit_or_render(args, "onboard", data, render)
+
+
+def cmd_where(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.analysis.context import suggest_placement
+
+    data = suggest_placement(ctx.engine, args.description)
+
+    def render(d):
+        for p in d:
+            _print(f"{p['affinity']:7.3f}  {p['origin']}  "
+                   f"({p['matching_chunks']} related chunks; insert after "
+                   f"{p['near_function']} at L{p['insertion_line']})")
+            pat = p.get("patterns") or {}
+            bits = [b for b in (pat.get("error_handling"), pat.get("naming_convention"),
+                                pat.get("visibility"),
+                                "inline tests" if pat.get("has_inline_tests") else "") if b]
+            if bits:
+                _print("         conventions: " + ", ".join(bits))
+
+    return _emit_or_render(args, "where", data, render)
+
+
+def cmd_related(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.analysis.context import find_related
+
+    data = find_related(ctx.store, args.name, limit=args.limit)
+
+    def render(d):
+        for r in d:
+            _print(f"{r['score']:5.2f}  {r['origin']}:{r['line_start']}  {r['name']}")
+            for reason in r["reasons"]:
+                _print(f"        - {reason}")
+
+    return _emit_or_render(args, "related", data, render)
+
+
+def cmd_suggest(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.analysis.context import suggest_refactors
+
+    data = suggest_refactors(ctx.store)
+
+    def render(d):
+        for s in d:
+            loc = f"{s['origin']}:{s['line_start']}  " if s["origin"] else ""
+            _print(f"[{s['kind']}] {loc}{s['name']}: {s['detail']}")
+
+    return _emit_or_render(args, "suggest", data, render)
+
+
+def cmd_plan(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.analysis.context import plan_task
+
+    data = plan_task(ctx.engine, args.description)
+
+    def render(d):
+        _print(f"# plan [{d['template']}]: {d['template_description']}")
+        for i, step in enumerate(d["checklist"], 1):
+            _print(f"{i}. {step}")
+        if d.get("patterns"):
+            _print("## conventions")
+            for p in d["patterns"]:
+                _print(f"  - {p}")
+        _print("## starting points")
+        for c in d["scout"]["top_chunks"][:5]:
+            _print(f"  {c['origin']}:{c['line_start']}  {c['name']}")
+
+    return _emit_or_render(args, "plan", data, render)
+
+
+def cmd_kind(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.analysis.context import classify_kind
+
+    k = classify_kind(ctx.store, args.name)
+    return _emit_or_render(args, "kind", {"name": args.name, "kind": k},
+                           lambda d: _print(d["kind"]))
+
+
+def cmd_explain(ctx: CommandContext, args) -> int:
+    """Why a chunk ranked (or not) for a query: its rank, score and signals
+    in the top-50 pool."""
+    res = ctx.engine.search(args.query, limit=50)
+    target = None
+    for h in res.hits:
+        if h.row.name == args.name or h.row.qualified_name == args.name:
+            target = h
+            break
+    data = {"query": args.query, "category": res.category, "strategy": res.strategy,
+            "alpha": res.alpha}
+    if target is None:
+        rows = ctx.store.find_by_name(args.name)
+        data["found"] = False
+        data["note"] = ("chunk exists but did not reach the top-50 pool"
+                        if rows else "no chunk with that name")
+        if rows:
+            data["nl"] = rows[0].nl[:300]
+    else:
+        rank = next(i for i, h in enumerate(res.hits) if h is target)
+        data.update({"found": True, "rank": rank, "score": target.score,
+                     "signals": target.signals, "nl": target.row.nl[:300]})
+    if args.json:
+        emit(envelope("explain", data), True)
+        return 0
+    for k, v in data.items():
+        _print(f"{k}: {v}")
+    return 0
+
+
+def _load_diff(ctx: CommandContext, args) -> str:
+    from cqs_tpu_torch.analysis.diffs import git_diff
+
+    if args.diff_file:
+        return Path(args.diff_file).read_text()
+    return git_diff(ctx.root, args.base)
+
+
+def cmd_review(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.analysis.diffs import review_diff
+
+    diff = _load_diff(ctx, args)
+    if not diff.strip():
+        _print("(no diff)")
+        return 0
+    data = review_diff(ctx.store, diff)
+
+    def render(d):
+        _print(f"# review: max risk {d['impact']['max_risk']}")
+        for t in d["impact"]["touched"]:
+            _print(f"  {t['risk']:6}  {t['origin']}:{t['line_start']}  {t['name']} "
+                   f"({t['callers']} callers)")
+        for f in d["findings"]:
+            _print(f"! [{f['kind']}] {f['message']}")
+
+    return _emit_or_render(args, "review", data, render)
+
+
+def cmd_impact_diff(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.analysis.diffs import impact_of_diff
+
+    diff = _load_diff(ctx, args)
+    if not diff.strip():
+        _print("(no diff)")
+        return 0
+    data = impact_of_diff(ctx.store, diff).as_dict()
+
+    def render(d):
+        _print(f"max risk: {d['max_risk']}")
+        for t in d["touched"]:
+            _print(f"  {t['risk']:6}  {t['origin']}:{t['line_start']}  {t['name']}")
+            for test in t["suggested_tests"]:
+                _print(f"          test: {test}")
+
+    return _emit_or_render(args, "impact-diff", data, render)
+
+
+def cmd_ci(ctx: CommandContext, args) -> int:
+    """The CI gate on a diff's impact risk: exit 3 when it reaches
+    ``--threshold``."""
+    from cqs_tpu_torch.analysis.diffs import ci_gate
+
+    code, data = ci_gate(ctx.store, _load_diff(ctx, args), threshold=args.threshold)
+    if args.json:
+        emit(envelope("ci", data), True)
+    else:
+        _print(data.get("gate", "PASS (empty diff)"))
+        for t in data.get("touched", []):
+            _print(f"  {t['risk']:6}  {t['name']}")
+    return code
+
+
+def cmd_affected(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.analysis.diffs import impact_of_diff
+
+    data = impact_of_diff(ctx.store, _load_diff(ctx, args)).as_dict()
+    tests = sorted({t for f in data["touched"] for t in f["suggested_tests"]})
+
+    def render(_):
+        for t in tests:
+            _print(t)
+        if not tests:
+            _print("(no affected tests found)")
+
+    return _emit_or_render(args, "affected", tests, render)
+
+
+def cmd_health(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.analysis.quality import health_report
+
+    data = health_report(ctx.store, ctx.root)
+
+    def render(d):
+        s = d["stats"]
+        _print(f"# health: {s['chunks']} chunks, {s['embedded']} embedded, "
+               f"{d['stale_count']} stale files, {d['dead_count']} dead functions")
+        for h in d["hotspots"][:5]:
+            _print(f"  hotspot: {h['name']} ({h['callers']} callers)")
+        for n in d["open_notes"][:5]:
+            _print(f"  note [{n['sentiment']}] {n['target']}: {n['text'][:60]}")
+        if d["parse_error_files"]:
+            _print(f"  parse errors in: {', '.join(d['parse_error_files'][:5])}")
+
+    return _emit_or_render(args, "health", data, render)
+
+
+def cmd_structural(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.analysis.quality import structural_scan
+
+    data = structural_scan(ctx.store, pattern_filter=args.pattern)
+
+    def render(d):
+        for f in d:
+            _print(f"[{f['pattern']}] {f['origin']}:{f['line']}  {f['name']}")
+        _print(f"({len(d)} findings)")
+
+    return _emit_or_render(args, "structural", data, render)
+
+
+def cmd_drift(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.analysis.quality import drift_report
+
+    data = drift_report(ctx.store, ctx.engine.embedder)
+
+    def render(d):
+        for f in d:
+            _print(f"{f['doc_code_sim']:6.3f}  {f['origin']}:{f['line_start']}  {f['name']}")
+        _print(f"({len(d)} drifted docs)")
+
+    return _emit_or_render(args, "drift", data, render)
+
+
+# ---------------------------------------------------------------------------
+# the cross-project registry (``store/projects.py``)
+# ---------------------------------------------------------------------------
+
+def cmd_project(ctx: CommandContext, args) -> int:
+    return _registry_action(args, kind="projects")
+
+
+def cmd_ref(ctx: CommandContext, args) -> int:
+    return _registry_action(args, kind="refs")
+
+
+def _registry_action(args, kind: str) -> int:
+    from cqs_tpu_torch.store.projects import add_project, list_projects, remove_project
+
+    if args.action == "list":
+        for name, root in list_projects(kind).items():
+            _print(f"{name:20} {root}")
+        return 0
+    if not args.name:
+        _print("name required")
+        return 2
+    if args.action == "add":
+        if not args.root:
+            _print("root path required")
+            return 2
+        add_project(args.name, args.root, kind)
+        _print(f"registered {args.name!r} -> {args.root}")
+        return 0
+    ok = remove_project(args.name, kind)
+    _print("removed" if ok else f"{args.name!r} not registered")
+    return 0 if ok else 1
+
+
+# ---------------------------------------------------------------------------
+# the eval gate and its sweeps (``eval/``), through the production search path
+# ---------------------------------------------------------------------------
+
+def cmd_eval(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.eval import diff_reports, load_query_set, run_eval
+
+    queries = load_query_set(args.queries)
+    eng = ctx.engine
+    if args.triage:
+        from cqs_tpu_torch.eval.triage import run_triage, summarize
+
+        def tprog(done, total):
+            if done % 10 == 0:
+                print(f"  triage {done}/{total}", file=sys.stderr)
+
+        rows = run_triage(eng, queries, category=args.category, progress=tprog)
+        summary = summarize(rows)
+        Path(args.triage).write_text(json.dumps({"summary": summary, "rows": rows}, indent=1))
+        _print(json.dumps(summary))
+        return 0
+
+    def progress(done, total, rep):
+        if done % 25 == 0:
+            print(f"  {done}/{total}  r@5={rep.recall(5):.3f}", file=sys.stderr)
+
+    data = run_eval(eng, queries, progress=progress, rerank=args.rerank).as_dict()
+    if args.baseline:
+        data["baseline_diff"] = diff_reports(data, json.loads(Path(args.baseline).read_text()))
+    if args.save:
+        Path(args.save).write_text(json.dumps(data, indent=2))
+    if args.json:
+        emit(envelope("eval", data, meta={"device": str(ctx.device)}), True)
+        return 0
+    r = data["recall"]
+    _print(f"eval: {data['total']} scoreable ({data['skipped']} no-gold, "
+           f"{data['skipped_missing']} gold-not-extracted)  "
+           f"R@1={r['r@1']:.1%} R@5={r['r@5']:.1%} R@20={r['r@20']:.1%}  "
+           f"p50={data['latency_ms']['p50']}ms ({ctx.device})")
+    if data["skipped_missing"]:
+        rs = data["recall_strict"]
+        _print(f"  strict (missing-gold-as-miss): R@1={rs['r@1']:.1%} "
+               f"R@5={rs['r@5']:.1%} R@20={rs['r@20']:.1%}")
+    for cat, c in data["per_category"].items():
+        _print(f"  {cat:20} n={c['total']:<4} R@5={c['r@5']:.1%}")
+    for k, d in data.get("baseline_diff", {}).items():
+        _print(f"  {k}: {d['current']:.3f} vs {d['baseline']:.3f} ({d['delta']:+.3f})")
+    return 0
+
+
+#: (knob, disabled value): every shipped-on recall lever with a clean off
+#: state (``cqs_tpu/cli/commands.py::ABLATE_LEVERS``). ``sig_boost_kind_gate``
+#: is off at 1.0 (no scaling), not 0.
+ABLATE_LEVERS: list[tuple[str, object]] = [
+    ("fts_acronym", 0), ("lang_hint_boost", 0.0), ("sig_struct_boost", 0.0),
+    ("rescue_name_weight", 0.0), ("xlang_core_weight", 0.0), ("name_boost", 0.0),
+    ("sig_boost", 0.0), ("type_boost", 0.0), ("path_affinity_boost", 0.0),
+    ("doc_demotion", 0.0), ("negation_demotion", 0.0), ("same_name_collapse", 0),
+    ("canonical_twin_collapse", 0), ("parent_boost", 0.0), ("sql_bridge", 0),
+    ("sig_leg_weight", 0.0), ("router_verb_scaffold", 0), ("router_that_verb", 0),
+    ("sig_boost_kind_gate", 1.0),
+]
+
+
+def cmd_ablate(ctx: CommandContext, args) -> int:
+    """Disable each shipped lever in turn and re-run the eval split through
+    the production pipeline (the result cache fingerprints the knob
+    snapshot, so a flip cannot serve a stale ordering)."""
+    from cqs_tpu_torch.eval import load_query_set, run_eval
+
+    queries = load_query_set(args.queries)
+    eng = ctx.engine
+    levers = ABLATE_LEVERS
+    if args.levers:
+        levers = []
+        for spec in args.levers.split(","):
+            knob, _, off = spec.partition("=")
+            levers.append((knob.strip(), off.strip() or "0"))
+
+    def snapshot() -> dict:
+        rep = run_eval(eng, queries).as_dict()
+        return {k: round(rep["recall"][k] * 100, 1) for k in ("r@1", "r@5", "r@20")}
+
+    base = snapshot()
+    _print(f"baseline           R@1={base['r@1']:5.1f}  R@5={base['r@5']:5.1f}  "
+           f"R@20={base['r@20']:5.1f}   ({len(queries)} queries)")
+    rows = {"baseline": base}
+    for knob, off in levers:
+        env = f"CQST_{knob.upper()}"
+        prior = os.environ.get(env)
+        os.environ[env] = str(off)
+        try:
+            r = snapshot()
+        finally:
+            if prior is None:
+                os.environ.pop(env, None)
+            else:
+                os.environ[env] = prior
+        rows[knob] = r
+        _print(f"-{knob:18} R@1={r['r@1']:5.1f}  R@5={r['r@5']:5.1f}  "
+               f"R@20={r['r@20']:5.1f}   "
+               f"(d5={r['r@5'] - base['r@5']:+.1f}, d20={r['r@20'] - base['r@20']:+.1f})")
+    if args.save:
+        Path(args.save).write_text(json.dumps(rows, indent=1))
+    return 0
+
+
+def cmd_sweep(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.eval.cv import load_labeled_pool, loco_sweep
+
+    pool = load_labeled_pool(args.pool, exclude_paths=args.exclude)
+    _print(f"pool: {len(pool)} labeled queries "
+           f"({len({q.category for q in pool})} categories)")
+    eng = ctx.engine
+
+    def prog(v, cats):
+        h = sum(x[0] for x in cats.values())
+        t = sum(x[1] for x in cats.values())
+        print(f"  {args.knob}={v}: R@{args.k} {h}/{t} = {h/t:.1%}", file=sys.stderr)
+
+    result = loco_sweep(eng, args.knob, args.values, pool, k=args.k, progress=prog)
+    if args.save:
+        Path(args.save).write_text(json.dumps(result, indent=1))
+    _print(json.dumps({k: v for k, v in result.items() if k != "per_value"}, indent=1))
+    for v, d in result["per_value"].items():
+        cats = " ".join(f"{c}={x['hits']}/{x['total']}"
+                        for c, x in sorted(d["per_category"].items()))
+        _print(f"  {v}: {d['overall']:.1%}  {cats}")
     return 0
 
 
@@ -512,8 +1157,6 @@ class _TrainLog:
         self._f = open(out / "train_log.jsonl", "w")
 
     def write(self, **row) -> None:
-        import json
-
         self._f.write(json.dumps(row) + "\n")
 
     def close(self) -> None:
@@ -847,7 +1490,6 @@ def cmd_export_model(ctx: CommandContext, args) -> int:
     """The active embedder's parameters as the reference's Flax-pathed numpy
     tree (``params.pkl``; the hash family's ``{"table": ...}``) and its
     identity (``config.json``)."""
-    import json
     import pickle
     import types
 
@@ -913,6 +1555,14 @@ HANDLERS = {
     "callers": cmd_callers, "callees": cmd_callees, "impact": cmd_impact,
     "trace": cmd_trace, "dead": cmd_dead, "test-map": cmd_test_map,
     "read": cmd_read, "similar": cmd_similar, "notes": cmd_notes, "gather": cmd_gather,
+    "deps": cmd_deps, "neighbors": cmd_neighbors, "note": cmd_note,
+    "scout": cmd_scout, "task": cmd_task, "onboard": cmd_onboard, "where": cmd_where,
+    "related": cmd_related, "suggest": cmd_suggest, "plan": cmd_plan, "kind": cmd_kind,
+    "explain": cmd_explain, "review": cmd_review, "impact-diff": cmd_impact_diff,
+    "ci": cmd_ci, "affected": cmd_affected, "health": cmd_health,
+    "structural": cmd_structural, "drift": cmd_drift,
+    "project": cmd_project, "ref": cmd_ref,
+    "eval": cmd_eval, "ablate": cmd_ablate, "sweep": cmd_sweep,
     "stats": cmd_stats, "status": cmd_status,
     "ping": cmd_ping, "refresh": cmd_refresh, "watch": cmd_watch,
     "batch": cmd_batch, "mcp": cmd_mcp, "serve": cmd_serve,

@@ -5,7 +5,9 @@ Port of ``cqs_tpu/cli/main.py``: the parser with the reference's flags for
 the commands the port serves, the bare-query default (a first argument that
 is not a command is a search query), and the dispatch that forwards the
 read commands to a live daemon (``daemon/client.py::FORWARDABLE``) before
-it runs them in-process. The handlers are in ``cli/commands.py``
+it runs them in-process; a search with a flag the daemon's request does not
+carry (``LOCAL_SEARCH_FLAGS``) runs in-process, where the reference's CLI
+forwards it without the flag. The handlers are in ``cli/commands.py``
 (``HANDLERS``); a reference command without one exits 2 with "not yet
 ported". ``--device`` defaults to ``cuda`` and fails loudly where there is no
 GPU; ``--device cpu`` runs the plain scans and trains on the CPU. A daemon
@@ -41,6 +43,16 @@ REFERENCE_COMMANDS = {
 #: list of what still exits 2
 PORTED_COMMANDS = set(HANDLERS)
 _VALUE_FLAGS = {"--slot", "--path", "--device"}
+#: ``search`` flags that ``daemon/client.py::translate_args`` leaves out of a
+#: daemon's request: a search that sets one runs in-process
+LOCAL_SEARCH_FLAGS = ("worktree", "projects", "rrf", "budget", "include_docs", "types",
+                      "exclude_types", "name_only", "no_demote", "pattern", "expand_parent")
+
+
+def search_stays_local(args) -> bool:
+    """True for a search that a daemon would answer without one of its
+    flags (``--threshold 0`` is a flag too)."""
+    return args.threshold is not None or any(getattr(args, f) for f in LOCAL_SEARCH_FLAGS)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -60,7 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="cqs-tpu-torch", parents=[common],
         description="Hybrid code search on PyTorch/CUDA: index, search, call-graph "
-                    "reads, a warm query daemon and the embedder's trainers.")
+                    "reads, agent context and diff commands, the eval gate, a warm "
+                    "query daemon and the embedder's trainers.")
     _orig_sub = p.add_subparsers(dest="command")
 
     class _Sub:
@@ -81,23 +94,39 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("-k", "--limit", type=int, default=10)
     sp.add_argument("--worktree", action="store_true",
                     help="overlay uncommitted edits (ephemeral delta index)")
+    sp.add_argument("--project", action="append", dest="projects",
+                    help="search a registered project instead (repeatable)")
     sp.add_argument("--lang", help="language filter")
     sp.add_argument("--filter", dest="path_filter", help="path glob filter")
     sp.add_argument("--alpha", type=float, help="override fusion alpha")
     sp.add_argument("--rerank", action="store_true",
                     help="cross-encoder rerank of the top pool (opt-in; [reranker] model_path)")
+    sp.add_argument("--rrf", action="store_true", help="RRF-fuse with the FTS leg")
     sp.add_argument("--body", action="store_true", help="include chunk bodies")
+    sp.add_argument("--budget", type=int, default=0,
+                    help="pack result bodies into a token budget (0 = off)")
     sp.add_argument("--include-docs", action="store_true",
                     help="include section/module/config chunks")
     sp.add_argument("--type", action="append", dest="types", metavar="CHUNK_TYPE")
     sp.add_argument("--exclude-type", action="append", dest="exclude_types",
                     metavar="CHUNK_TYPE")
+    sp.add_argument("--name-only", action="store_true",
+                    help="FTS name lookup only (skip the hybrid pipeline)")
     sp.add_argument("--threshold", type=float, default=None,
                     help="cosine floor (score_threshold knob)")
+    sp.add_argument("--no-demote", action="store_true",
+                    help="disable test/vendored/data/doc demotions")
+    sp.add_argument("--pattern", choices=["builder", "error_swallow", "async",
+                                          "mutex", "unsafe", "recursion"],
+                    help="structural pattern filter on results (3x over-fetch)")
+    sp.add_argument("--expand-parent", action="store_true",
+                    help="attach containing type/module context (small-to-big)")
 
     sp = sub.add_parser("callers", help="who calls this function")
     sp.add_argument("name")
     sp = sub.add_parser("callees", help="what this function calls")
+    sp.add_argument("name")
+    sp = sub.add_parser("deps", help="chunks referencing a type")
     sp.add_argument("name")
     sp = sub.add_parser("impact", help="transitive impact of changing a function")
     sp.add_argument("name")
@@ -110,17 +139,38 @@ def build_parser() -> argparse.ArgumentParser:
     sub.add_parser("dead", help="likely-dead code report")
     sp = sub.add_parser("test-map", help="tests covering a function")
     sp.add_argument("name")
+    sp = sub.add_parser("explain", help="why did this chunk rank for this query?")
+    sp.add_argument("query")
+    sp.add_argument("name")
+    sp = sub.add_parser("neighbors", help="chunks adjacent to the named one in its file")
+    sp.add_argument("name")
     sp = sub.add_parser("read", help="print a chunk by name or id")
     sp.add_argument("name")
     sp = sub.add_parser("similar", help="chunks similar to a given chunk")
     sp.add_argument("name")
     sp.add_argument("-k", "--limit", type=int, default=10)
+    sp = sub.add_parser("eval", help="run the retrieval eval gate")
+    sp.add_argument("queries", help="path to a v3-format eval JSON")
+    sp.add_argument("--baseline", help="saved report to diff against")
+    sp.add_argument("--save", help="write the report JSON here")
+    sp.add_argument("--rerank", action="store_true",
+                    help="cross-encoder rerank over the top pool (needs reranker weights)")
+    sp.add_argument("--triage", metavar="OUT",
+                    help="per-query leg triage (dense/sparse/FTS gold ranks) -> JSON")
+    sp.add_argument("--category", help="triage only this labeled category")
+    sp = sub.add_parser("note", help="attach a note to a chunk/path")
+    sp.add_argument("target")
+    sp.add_argument("text")
+    sp.add_argument("--sentiment", default="neutral",
+                    choices=["positive", "negative", "neutral", "warning", "todo"])
     sp = sub.add_parser("notes", help="list notes")
     sp.add_argument("target", nargs="?")
     sp = sub.add_parser("gather", help="assemble reading context for a topic")
     sp.add_argument("query")
     sp.add_argument("--depth", type=int, default=2)
     sp.add_argument("-k", "--limit", type=int, default=20)
+    sp.add_argument("--budget", type=int, default=0,
+                    help="pack bodies into a token budget (0 = off)")
     sp.add_argument("--direction", choices=["both", "callees", "callers"],
                     default="both", help="call-graph expansion direction")
     sp.add_argument("--seed-limit", type=int, default=None,
@@ -128,6 +178,58 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--seed-threshold", type=float, default=0.0,
                     help="min seed score (0 = off)")
     sp.add_argument("--decay", type=float, default=0.6, help="per-hop score decay factor")
+
+    sp = sub.add_parser("scout", help="pre-investigation dashboard for a topic")
+    sp.add_argument("query")
+    sp = sub.add_parser("task", help="full task brief: scout+gather+impact+placement")
+    sp.add_argument("description")
+    sp = sub.add_parser("onboard", help="repo tour, or a guided concept tour")
+    sp.add_argument("concept", nargs="?", default=None,
+                    help="concept to tour (entry point -> call chain -> "
+                         "callers -> types -> tests); omit for the repo tour")
+    sp.add_argument("--depth", type=int, default=3, help="callee BFS depth")
+    sp.add_argument("--direction", choices=("callees", "callers", "both"),
+                    default="callees",
+                    help="which call-graph side gets the full-depth BFS "
+                         "(the other side walks one hop)")
+    sp = sub.add_parser("where", help="suggest where new functionality should live")
+    sp.add_argument("description")
+    sp = sub.add_parser("related", help="functions related to the named one")
+    sp.add_argument("name")
+    sp.add_argument("-k", "--limit", type=int, default=10)
+    sub.add_parser("suggest", help="refactor suggestions")
+    sp = sub.add_parser("plan", help="task description -> template + checklist")
+    sp.add_argument("description")
+    sp = sub.add_parser("kind", help="classify a bare name (function/type/const/module)")
+    sp.add_argument("name")
+
+    sp = sub.add_parser("review", help="review the current git diff")
+    sp.add_argument("--base", help="git base ref (default: working tree diff)")
+    sp.add_argument("--diff-file", help="read a unified diff from a file instead of git")
+    sp = sub.add_parser("impact-diff", help="impact analysis of the current git diff")
+    sp.add_argument("--base")
+    sp.add_argument("--diff-file")
+    sp = sub.add_parser("ci", help="CI gate on diff impact risk (exit 3 on breach)")
+    sp.add_argument("--base")
+    sp.add_argument("--diff-file")
+    sp.add_argument("--threshold", default="High", choices=["High", "Medium", "Off"])
+    sp = sub.add_parser("affected", help="tests affected by the current git diff")
+    sp.add_argument("--base")
+    sp.add_argument("--diff-file")
+
+    sub.add_parser("health", help="composite index health report")
+    sp = sub.add_parser("structural", help="structural anti-pattern scan")
+    sp.add_argument("--pattern", help="only this pattern (e.g. error_swallow)")
+    sub.add_parser("drift", help="doc-vs-code drift report")
+
+    sp = sub.add_parser("project", help="cross-project registry")
+    sp.add_argument("action", choices=["add", "list", "remove"])
+    sp.add_argument("name", nargs="?")
+    sp.add_argument("root", nargs="?")
+    sp = sub.add_parser("ref", help="external read-only reference indexes")
+    sp.add_argument("action", choices=["add", "list", "remove"])
+    sp.add_argument("name", nargs="?")
+    sp.add_argument("root", nargs="?")
 
     sub.add_parser("stats", help="index statistics")
     sp = sub.add_parser("status", help="index freshness status")
@@ -146,6 +248,17 @@ def build_parser() -> argparse.ArgumentParser:
     sp = sub.add_parser("serve", help="local HTTP API + web UI")
     sp.add_argument("--port", type=int, default=7777)
     sp.add_argument("--host", default="127.0.0.1")
+    sp = sub.add_parser("sweep", help="LOCO sweep of one knob over a labeled query pool")
+    sp.add_argument("knob", help="knob name (e.g. fts_df_cutoff)")
+    sp.add_argument("values", nargs="+", help="values to sweep")
+    sp.add_argument("--pool", nargs="+", required=True, help="labeled v3-format JSONs")
+    sp.add_argument("--exclude", nargs="*", default=[], help="held-out gate splits")
+    sp.add_argument("-k", type=int, default=5)
+    sp.add_argument("--save", help="write the sweep table JSON here")
+    sp = sub.add_parser("ablate", help="disable each shipped recall lever in turn, re-eval")
+    sp.add_argument("queries", help="v3-format eval split JSON")
+    sp.add_argument("--levers", help="comma list of knob[=off_value] overriding the built-in set")
+    sp.add_argument("--save", help="write the ablation table JSON here")
     sp = sub.add_parser("embed-2d", help="compute 2-D projection coords for the cluster view")
     sp.add_argument("--method", default="auto", choices=["auto", "pca", "umap"])
     sp = sub.add_parser("train-data", help="mine (query, positive, negatives) pairs")
@@ -277,9 +390,11 @@ def dispatch(args) -> int:
     try:
         # read commands go to a live daemon first: its warm handles beat an
         # in-process cold start; without one (or on an error answer) the
-        # command runs here. A --worktree search stays here: the overlay is
-        # this worktree's state, which the daemon's request does not carry
-        if args.command in FORWARDABLE and not getattr(args, "worktree", False):
+        # command runs here. A search with a flag the daemon's request does
+        # not carry (--worktree: this worktree's overlay; --rrf, --pattern,
+        # ...) stays here, or the daemon would answer another search
+        if args.command in FORWARDABLE and not (args.command == "search"
+                                                and search_stays_local(args)):
             resp = request(ctx.index_dir, args.command, translate_args(args.command, args))
             if resp is not None and "error" not in resp:
                 if args.json:

@@ -38,7 +38,8 @@ locks. The worktree overlay (``search(..., use_overlay=True)``) masks the
 dirty files' rows and merges hits from an ephemeral ``DenseIndex`` of their
 current content (``store/overlay.py``). :class:`TieredServing` routes
 whole queries by router category to a second slot's engine (a distilled
-tier). Not ported (it raises or is absent): mesh sharding.
+tier). :meth:`SearchEngine.search_with_rrf` fuses the FTS leg's ranks into a
+search's order on the host. Not ported (it raises or is absent): mesh sharding.
 """
 
 from __future__ import annotations
@@ -1500,6 +1501,24 @@ class SearchEngine:
         for rank, c in enumerate(reranked):
             c.boosts["rerank_pos"] = rank
         return reranked + cands[self.lim.rerank_pool:]
+
+    # -- FTS leg (RRF) -----------------------------------------------------
+
+    def search_with_rrf(self, query: str, limit: int = 10, **kw) -> SearchResult:
+        """Hybrid search + RRF fusion with the FTS5 leg (opt-in pipeline
+        variant, ``engine.py:1617-1629``): the device program runs at
+        ``max(limit * 3, 30)`` rows, then the host fuses the store's FTS
+        ranks into its order."""
+        result = self.search(query, limit=max(limit * 3, 30), **kw)
+        fts = self.store.fts_search(query, limit=50)
+        cands = [Candidate(row=h.row, fused=h.score, boosts=dict(h.signals)) for h in result.hits]
+        for c in cands:
+            c.final = c.fused
+        rrf_with_fts(cands, fts, self.lim)
+        cands.sort(key=lambda c: (-c.final, c.row.id))
+        hits = [SearchHit(c.row, c.final, c.signals) for c in cands[:limit]]
+        return SearchResult(hits, result.category, result.strategy + "+rrf",
+                            result.alpha, result.elapsed_ms, result.meta)
 
 
 class TieredServing:

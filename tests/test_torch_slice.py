@@ -140,7 +140,7 @@ def test_cli_search_json_and_unported(tmp_project, capsys):
     env = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert env["command"] == "search" and 0 < len(env["results"]) <= 3
     assert env["_meta"]["device"] == "cpu"
-    assert main(["deps", "SessionStore", "--path", str(tmp_project)]) == 2
+    assert main(["blame", "validate_token", "--path", str(tmp_project)]) == 2
     assert "not yet ported" in capsys.readouterr().err
 
 

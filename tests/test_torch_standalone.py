@@ -51,7 +51,7 @@ COPIES = (
     "parser/docs.py", "parser/web.py", "parser/__init__.py",
     "nl/__init__.py",
     "store/schema.py", "store/migrations.py", "store/slots.py", "store/cache.py",
-    "store/lock.py", "store/store.py", "store/__init__.py",
+    "store/lock.py", "store/store.py", "store/__init__.py", "store/projects.py",
     "models/tokenizer.py", "models/registry.py",
     "index/stamp.py", "index/lexical.py",
     "search/synonyms.py", "search/router.py", "search/scoring.py",
@@ -86,8 +86,8 @@ PORTED = (
     "parallel/__init__.py", "parallel/train.py",
 )
 
-#: The one copy that differs from its original, ``store/store.py``, and all
-#: of its difference. A worker thread must never read through the home
+#: ``store/store.py``'s difference from its original, all of it (the other
+#: copies that differ: ``ANALYSIS_READS``, ``PROJECTS_DEVICE``). A worker thread must never read through the home
 #: connection (two threads running the same SQL text on one connection share
 #: its cached prepared statement, and one thread's step takes the other's
 #: row), so in the port (1) ``Store._read_db`` is the text below: it retries
@@ -145,6 +145,62 @@ def port_store_text(reference: str) -> str:
             assert "self.db" in methods[i], name
             methods[i] = re.sub(r"\bself\.db\b", "self._read_db()", methods[i])
     return "".join(methods)
+
+
+#: Copies whose one allowed difference is that their reads of the store go
+#: through ``store._read_db()`` where the reference says ``store.db``: the
+#: daemon calls them from client threads, which must never read through the
+#: writer's connection (``tests/test_torch_store_threads.py``). Their
+#: originals read through ``store.db`` and never write through it
+#: (``test_analysis_reads_are_only_reads``). ``analysis/diffs.py`` reads
+#: through the store's methods only and stays verbatim.
+ANALYSIS_READS = ("analysis/callgraph.py", "analysis/context.py",
+                  "analysis/extraction_audit.py", "analysis/quality.py")
+
+#: ``store/projects.py``'s one allowed difference, line for line: another
+#: project's engine opens on the caller's device (the port's
+#: ``CommandContext.create`` takes a keyword-only ``device`` with no
+#: default), threaded through ``open_project_engine`` and
+#: ``cross_project_search``.
+PROJECTS_DEVICE = (
+    ("def open_project_engine(name: str):\n",
+     "def open_project_engine(name: str, *, device: str | torch.device):\n"),
+    ('    """Open a registered project\'s store + engine (read-only search scope)."""\n',
+     '    """Open a registered project\'s store + engine (read-only search scope)\n'
+     '    on ``device``, the caller\'s: never a device of its own choosing."""\n'),
+    ("    ctx = CommandContext.create(str(root))\n",
+     "    ctx = CommandContext.create(str(root), device=device)\n"),
+    ("def cross_project_search(names: list[str], query: str, limit: int = 10) -> list[dict]:\n",
+     "def cross_project_search(names: list[str], query: str, limit: int = 10, *,\n"
+     "                         device: str | torch.device) -> list[dict]:\n"),
+    ("        ctx = open_project_engine(name)\n",
+     "        ctx = open_project_engine(name, device=device)\n"),
+)
+
+
+def port_copy_text(rel: str, reference: str) -> str:
+    """The reference's text of a copy (package already renamed) with the
+    port's allowed difference for that copy applied."""
+    if rel == "store/store.py":
+        return port_store_text(reference)
+    if rel in ANALYSIS_READS:
+        assert re.search(r"\bstore\.db\b", reference), rel
+        return re.sub(r"\bstore\.db\b", "store._read_db()", reference)
+    if rel == "store/projects.py":
+        for old, new in PROJECTS_DEVICE:
+            assert reference.count(old) == 1, old
+            reference = reference.replace(old, new)
+    return reference
+
+
+def test_analysis_reads_are_only_reads():
+    # every use of the writer's connection that the port moves is a read
+    for rel in ANALYSIS_READS:
+        text = (REF / rel).read_text()
+        uses = [ln for ln in text.splitlines() if re.search(r"\bstore\.db\b", ln)]
+        assert uses, rel
+        assert not re.search(r"\b(INSERT|UPDATE|DELETE|REPLACE)\b|commit\(|write_txn", text), rel
+        assert "store.db" not in (PORT / rel).read_text(), rel
 
 
 def reference_imports(source: str) -> list[str]:
@@ -232,9 +288,7 @@ def test_copy_matches_reference(rel):
     ref = REPO / "native" / "fastscan.cpp" if rel == "native/fastscan.cpp" else REF / rel
     if rel.endswith(".py"):
         want = re.sub(r"\bcqs_tpu\.", "cqs_tpu_torch.", ref.read_text())
-        if rel == "store/store.py":
-            want = port_store_text(want)
-        assert port.read_text() == want
+        assert port.read_text() == port_copy_text(rel, want)
     else:
         assert port.read_bytes() == ref.read_bytes()
 

@@ -139,3 +139,96 @@ def test_read_only_open_is_retried(tmp_path, monkeypatch):
     assert not t.is_alive()
     assert len(attempts) == 2 and got[0][0] is not st.db and got[0][1] == 5
     st.close()
+
+
+class _NotedConnection:
+    """The store's home (writer) connection, with every thread that runs SQL
+    through it noted."""
+
+    def __init__(self, conn: sqlite3.Connection):
+        self._conn = conn
+        self.threads: set[int] = set()
+
+    def _noted(self, name):
+        def call(*a, **kw):
+            self.threads.add(threading.get_ident())
+            return getattr(self._conn, name)(*a, **kw)
+        return call
+
+    def __getattr__(self, name):
+        if name in ("execute", "executemany", "executescript", "cursor"):
+            return self._noted(name)
+        return getattr(self._conn, name)
+
+    def __enter__(self):
+        return self._conn.__enter__()
+
+    def __exit__(self, *exc):
+        return self._conn.__exit__(*exc)
+
+
+#: the analysis requests a daemon's client threads send while the watch
+#: loop writes: each reads the store through ``analysis/{context,quality,
+#: callgraph}.py``
+ANALYSIS_REQUESTS = (("onboard", {}), ("health", {}), ("suggest", {}),
+                     ("related", {"name": "f3"}))
+
+
+def test_analysis_reads_while_the_watch_loop_writes(tmp_path, fast_switching):
+    # the daemon's threads: client threads ask the dispatch table for
+    # analysis commands (serialized among themselves by BatchContext.lock)
+    # while the watch loop's thread, the store's home thread, upserts whole
+    # files without that lock. No request may run SQL through the writer's
+    # connection: there it would share cached statements with the writer
+    # and read its uncommitted rows.
+    from cqs_tpu_torch.cli.context import CommandContext
+    from cqs_tpu_torch.daemon.dispatch import BatchContext
+
+    (tmp_path / ".cqs-tpu").mkdir()
+    ctx = CommandContext.create(str(tmp_path), device="cpu")
+    st = ctx.store
+    st.upsert_chunks(_chunks(0, 5 * BATCH), ["nl"] * 5 * BATCH, ["nl"] * 5 * BATCH)
+    writer = _NotedConnection(st.db)
+    st.db = writer
+    bctx = BatchContext(ctx)
+    stop = threading.Event()
+    errors: list[object] = []
+    files_seen: list[set[int]] = [set() for _ in range(N_THREADS)]
+
+    def client(k: int) -> None:
+        try:
+            rounds = 0
+            while rounds < 10 or not stop.is_set():
+                for command, args in ANALYSIS_REQUESTS:
+                    resp = bctx.dispatch(command, args)
+                    if "error" in resp:
+                        errors.append((command, resp["error"]))
+                        return
+                    if command == "onboard":
+                        # one file a write: a committed state holds whole files
+                        sizes = [f["chunks"] for f in resp["results"]["largest_files"]]
+                        assert sizes and set(sizes) == {BATCH}, sizes
+                        files_seen[k].add(len(sizes))
+                rounds += 1
+                if rounds > 400:
+                    break
+        except BaseException as e:          # reported by the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(N_THREADS)]
+    for t in threads:
+        t.start()
+    for b in range(5, 10):
+        st.upsert_chunks(_chunks(b * BATCH, (b + 1) * BATCH), ["nl"] * BATCH, ["nl"] * BATCH)
+    stop.set()
+    for t in threads:
+        t.join(timeout=120)
+    try:
+        assert not any(t.is_alive() for t in threads)
+        assert not errors, errors[:3]
+        assert writer.threads == {threading.get_ident()}, "a client thread read through the writer"
+        assert set().union(*files_seen) <= set(range(5, 11))
+    finally:
+        st.db = writer._conn
+        bctx.close()
+        ctx.close()
