@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``cqs_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--phases kernels,e2e,commands,scale,serve,neural,graph,train]
+    python3 chip_smoke.py [--seed 0] [--phases kernels,e2e,commands,scale,shard,serve,neural,graph,train]
 
 Phases, each fatal on error (non-zero exit, no result line):
 
@@ -65,6 +65,26 @@ Phases, each fatal on error (non-zero exit, no result line):
    slot (``pool_check``: shared rows' fused scores within rtol 1e-5 / atol
    1e-6; a row in one pool only must be a near-tie at a scan's or the
    pool's boundary);
+5b. shard: mesh-sharded hybrid serving on the one card. A corpus at
+   ``docs/scale-10m.md``'s production geometry (1,048,576 rows, 768-d, T
+   128 terms, sketch 1024, vocab 30522; the clustered generator of
+   ``scripts/validate_sharded_8m.py``, drawn from the seed) built with
+   ``ShardedHybridIndex.from_row_blocks`` over ``Mesh([cuda:0] * 4)`` (four
+   logical shards of 262,144 rows) and over ``Mesh([cuda:0])``, in modes 0
+   (bf16), 1 (q8) and 2 (sk8), each shard's bytes printed against that doc's
+   budget; 64 queries (a row's vector and its terms, pool 500, alpha 0.8)
+   through ``sharded_search_legs``: 4 shards must equal 1 shard bit for bit,
+   the kernels' pools must match the plain per-shard step's on the card
+   (``pool_check``'s rule), and each shard's scans must launch ``LOOP_CC`` /
+   ``LOOP_I8_CC`` exactly as the mode implies (mode 0: 2 ``LOOP_CC`` a
+   shard a query; mode 1: 2 ``LOOP_I8_CC``; mode 2: one each); B=1 median
+   and device-busy ms for 4 and 1 shards; both kernels at a shard's scans
+   (262,144 x 768 and x 1024, m 500) against their plain twins, their
+   bound, the per-shard step and ``torch.matmul`` + ``torch.topk``. Then the
+   engine at the repository corpus: ``mesh_shards=4`` on one card must warn
+   and serve from one device; on an explicit ``Mesh([cuda:0] * 4)`` the
+   queries' top 5 must equal the single-device engine's and launch
+   ``LOOP_CC``;
 6. serve: the warm daemon, in this process plus threads: ``DaemonServer``
    over a micro-batching ``BatchContext`` on the repository corpus, asked
    over its Unix socket by 1, 4 and 16 client threads (queries per second,
@@ -124,7 +144,9 @@ Phases, each fatal on error (non-zero exit, no result line):
    checked).
 
 The kernels' launch counters are zeroed before phase 4 and read after
-phase 5, zeroed again before phase 4b and read after it, and again around
+phase 5, read just before and just after each run of phase 5b's path (the
+sharded path must launch ``LOOP_CC`` and ``LOOP_I8_CC``), zeroed again before
+phase 4b and read after it, and again around
 phase 6, phase 7, phase 8 and phase 9 (the split bf16 loop kernel must have
 launched from the commands' path, the socket path, the neural path, the
 graph path and the train path); a
@@ -135,7 +157,8 @@ batched program did not launch the split kernel, a widening kernel that
 did not launch in phase 3, and any module of JAX or of the JAX package
 (``cqs_tpu``) in ``sys.modules`` at the end. The CUDA-core template's bf16
 and int8 x int8 instances serve only m > 128 and tiles that are not whole
-128-row sub-tiles, which no program launches. The third-to-last line is a
+128-row sub-tiles: the shard phase's per-shard top-pool (m 500) is their
+one program. The third-to-last line is a
 JSON object with each kernel's launches, error, times, bound and library
 time; then the card's name and power limit; the last is ``{"ok": true,
 "device": {...}}``. Needs one CUDA card; exits non-zero without one or
@@ -205,15 +228,16 @@ LIBRARY_CALLS = {"scan_topk_grouped_i8": "torch._int_mm: the score product only,
                  "not the same function"}
 #: (rows, width, tile, B, m) of each kernel's entry on the kernels line: the
 #: split loop kernel at a repository-size solo query's sketch scan (bf16)
-#: and at the screened program's scan (int8); the templates at 1,048,576 x
-#: 1024 B=1 m 4, timed in turns with the split kernel there (no program
-#: routes to them); the grouped kernels at their B=128 sketch scan
+#: and at the screened program's scan (int8); the CUDA-core templates at a
+#: shard's scans in the shard phase (262,144 rows, m = pool 500: the bf16
+#: dense scan, the int8 sketch scan); the widening kernel at 1,048,576 x 1024
+#: B=1 m 4; the grouped kernels at their B=128 sketch scan
 KERNEL_CASES = {
     "scan_topk_loop_split": (4096, 1024, 2048, 1, 64),
-    "scan_topk_loop_cc": (SCALE_ROWS, 1024, 2048, 1, 4),
+    "scan_topk_loop_cc": (SCALE_ROWS // 4, 768, 2048, 1, 500),
     "scan_topk_grouped": (SCALE_ROWS, 1024, 2048, 128, 4),
     "scan_topk_loop_split_i8": (SCALE_ROWS, 256, 16384, 1, 16),
-    "scan_topk_loop_i8_cc": (SCALE_ROWS, 1024, 2048, 1, 4),
+    "scan_topk_loop_i8_cc": (SCALE_ROWS // 4, 1024, 2048, 1, 500),
     "scan_topk_grouped_i8": (SCALE_ROWS, 1024, 2048, 128, 4),
     "scan_topk_loop_i8w": (SCALE_ROWS, 1024, 2048, 1, 4),
     "scan_topk_grouped_i8w": (SCALE_ROWS, 1024, 2048, 128, 4),
@@ -1415,6 +1439,439 @@ def phase_scale(torch, dev, rng, report, n: int = SCALE_ROWS):
     report["scale"] = {"device_gb": gb, "sketch_build_s": w.sparse_s, "ptk": ptk,
                        "dense_i8_ms": q8_build_ms, "sketch_i8_ms": sk8_build_ms, **res}
     pool_checks(torch, w, "scale_pools", report)
+
+
+# -- phase 5b: mesh-sharded hybrid serving ---------------------------------------
+
+#: the sharded corpus: docs/scale-10m.md's production geometry (768-d dense,
+#: T 128 terms, sketch 1024, vocab 30522) at 1,048,576 rows in 4 logical
+#: shards on the one card; 64 queries at the engine's pool and alpha 0.8
+SHARD_GEOMETRY = {"n": SCALE_ROWS, "d": 768, "t": 128, "s": 1024, "v": 30522, "shards": 4,
+                  "queries": 64, "pool": 500, "alpha": 0.8}
+#: (kernel, rows kind, width) of the per-shard scans each placement launches:
+#: mode 0 bf16 dense and sketch, mode 1 int8 both, mode 2 bf16 dense and int8 sketch
+SHARD_SCANS = {0: ("scan_topk_loop_cc", "scan_topk_loop_cc"),
+               1: ("scan_topk_loop_i8_cc", "scan_topk_loop_i8_cc"),
+               2: ("scan_topk_loop_cc", "scan_topk_loop_i8_cc")}
+
+
+def shard_row_bytes(mode: int, d: int, s: int, t: int) -> tuple[str, int]:
+    """The resident bytes a row of each placement holds, by
+    ``docs/scale-10m.md``'s budget: (formula, bytes)."""
+    return [("2D + 2S + 8T", 2 * d + 2 * s + 8 * t), ("2D + D + S + 8T", 3 * d + s + 8 * t),
+            ("2D + S + 8T", 2 * d + s + 8 * t)][mode]
+
+
+def shard_corpus(torch, dev, seed: int, n: int, d: int, t: int, v: int, centers: int = 65536):
+    """``scripts/validate_sharded_8m.py``'s clustered corpus (65,536
+    centers, noise 0.3, uniform term ids, lognormal weights), drawn on the
+    device from ``seed`` and brought to the host, where ``from_row_blocks``
+    reads it block by block."""
+    import numpy as np
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 31337)
+    c = torch.randn(centers, d, device=dev, generator=gen)
+    mat = np.empty((n, d), np.float32)
+    step = 1 << 18
+    for lo in range(0, n, step):
+        hi = min(lo + step, n)
+        cid = torch.randint(0, centers, (hi - lo,), device=dev, generator=gen)
+        mat[lo:hi] = (c[cid] + 0.3 * torch.randn(hi - lo, d, device=dev, generator=gen)).cpu()
+    ids = torch.randint(0, v, (n, t), device=dev, generator=gen, dtype=torch.int32).cpu().numpy()
+    w = torch.exp(0.8 * torch.randn(n, t, device=dev, generator=gen)).cpu().numpy()
+    return mat, ids, w
+
+
+@contextlib.contextmanager
+def plain_shard_scans(log: list | None = None):
+    """Within the block each shard's top-k runs the plain per-shard step
+    (``topk_plain``: a full score vector and one stable top-k) in the
+    kernel's place, on the card, each call recorded in ``log`` as (rows, q,
+    vals). The package itself never makes that choice: this swaps the
+    function here."""
+    from cqs_tpu_torch.ops import topk
+    from cqs_tpu_torch.parallel import mesh
+
+    real = mesh.shard_topk
+
+    def plain(rows, q, k, mask):
+        v, r = topk.topk_plain(rows, q, k, mask)
+        if log is not None:
+            log.append((rows, q, v))
+        return v, r
+
+    mesh.shard_topk = plain
+    try:
+        yield
+    finally:
+        mesh.shard_topk = real
+
+
+def shard_pool_check(torch, label: str, kernel_out, plain_out, log, n_shards: int,
+                     n_s: int, pool: int) -> dict:
+    """:func:`pool_check`'s rule for one sharded query: the kernels' pool
+    against the plain per-shard step's. A row in both has fused scores
+    within rtol 1e-5 / atol 1e-6; a row in one pool only must owe it to a
+    near-tie: its fused score near the other pool's last slot, or one of
+    its leg scores near that leg's pool boundary (the pool-th best over the
+    shards, from ``log``, this query's 2 x N plain scans)."""
+    from cqs_tpu_torch.ops import topk
+
+    k_f, k_r = (x[0].cpu().numpy() for x in kernel_out[:2])
+    p_f, p_r = (x[0].cpu().numpy() for x in plain_out[:2])
+    kp = {int(r): float(f) for r, f in zip(k_r, k_f) if f > -1e30}
+    pp = {int(r): float(f) for r, f in zip(p_r, p_f) if f > -1e30}
+    if not pp:
+        fail(f"shard pool[{label}]: the plain pool is empty")
+    worst = 0.0
+    for row in kp.keys() & pp.keys():
+        worst = max(worst, abs(kp[row] - pp[row]))
+        if not near(kp[row], pp[row]):
+            fail(f"shard pool[{label}]: row {row}: fused {kp[row]!r} with the kernels, "
+                 f"{pp[row]!r} plain")
+    bounds = []
+    for leg in range(2):
+        vals = torch.cat([v for _, _, v in log[leg * n_shards:(leg + 1) * n_shards]], dim=1)
+        bounds.append(float(torch.sort(vals[0], descending=True).values[pool - 1]))
+    strays = 0
+    for mine, other in ((kp, pp), (pp, kp)):
+        tail = min(other.values()) if other else 0.0
+        for row in mine.keys() - other.keys():
+            strays += 1
+            s, local = divmod(row, n_s)
+            legs = [float(topk._scores(log[leg * n_shards + s][0][local:local + 1],
+                                       log[leg * n_shards + s][1], None)[0, 0])
+                    for leg in range(2)]
+            if not (near(mine[row], tail) or any(near(x, b) for x, b in zip(legs, bounds))):
+                fail(f"shard pool[{label}]: row {row} (fused {mine[row]!r}, leg scores "
+                     f"{legs}, leg bounds {bounds}) is in one pool only, no near-tie")
+    return {"slots": len(pp), "same_slot_rows": int(((k_r == p_r) & (p_f > -1e30)).sum()),
+            "rows_in_one_pool_only": strays, "max_fused_diff": worst}
+
+
+def shard_kernel_times(torch, dev, seed: int, report, n: int, pool: int) -> None:
+    """``LOOP_CC`` and ``LOOP_I8_CC`` at one shard's scans (n rows x 768 and
+    x 1024, tile 2048, m = pool, B=1): each against its plain twin (held
+    slot by slot, timed in turns), the whole per-shard step (kernel + tile
+    merge) against the plain per-shard step (full score vector + stable
+    top-k), and, for bf16, the reference's way: one ``torch.matmul`` into a
+    full bf16 score vector and one ``torch.topk`` (not the same values:
+    the product rounds to bf16)."""
+    from cqs_tpu_torch.ops.topk import (LOOP_CC, LOOP_I8_CC, scan_topk_plain_loop, shard_topk,
+                                        topk_plain)
+
+    errs = report.setdefault("errs", {})
+    rows = []
+    for kernel, d in ((LOOP_CC, 768), (LOOP_CC, 1024), (LOOP_I8_CC, 768), (LOOP_I8_CC, 1024)):
+        gen = torch.Generator(device=dev).manual_seed(seed + n + d + (kernel is LOOP_I8_CC))
+        if kernel is LOOP_CC:
+            index = torch.randn(n, d, device=dev, generator=gen).to(torch.bfloat16)
+            q = torch.randn(1, d, device=dev, generator=gen).to(torch.bfloat16)
+        else:
+            index = torch.randint(-127, 128, (n, d), device=dev, generator=gen,
+                                  dtype=torch.int8)
+            q = torch.randint(-127, 128, (1, d), device=dev, generator=gen, dtype=torch.int8)
+        mask = (torch.rand(n, device=dev, generator=gen) > 0.02).to(torch.int32)
+        label = f"{kernel.name} n={n} d={d} tile=2048 b=1 m={pool}"
+        cmp = compare_exact if kernel.kind == "i8" else compare_tiles
+        err = cmp(kernel, scan_topk_plain_loop, index, q, mask, 2048, pool, label)
+        errs[kernel.name] = max(errs.get(kernel.name, 0.0), err)
+        sv, sr = shard_topk(index, q, pool, mask)
+        pv, pr = topk_plain(index, q, pool, mask)
+        if not (torch.equal(sr, pr) if kernel.kind == "i8" else torch.allclose(
+                sv, pv, rtol=RTOL, atol=ATOL)):
+            fail(f"{label}: the per-shard step differs from the plain step")
+        pm1 = cuda_ms(lambda: scan_topk_plain_loop(index, q, mask, 2048, pool), 5)
+        km1 = cuda_ms(lambda: kernel(index, q, mask, 2048, pool), 10)
+        km2 = cuda_ms(lambda: kernel(index, q, mask, 2048, pool), 10)
+        pm2 = cuda_ms(lambda: scan_topk_plain_loop(index, q, mask, 2048, pool), 5)
+        step_ms = cuda_ms(lambda: shard_topk(index, q, pool, mask), 10)
+        step_plain_ms = cuda_ms(lambda: topk_plain(index, q, pool, mask), 10)
+        ref_way = (cuda_ms(lambda: torch.topk(torch.matmul(q, index.t()), pool), 10)
+                   if kernel.kind == "bf16" else None)
+        bound = bound_ms(kernel.kind, n, d, 1, 2048, pool)
+        t = {"kernel": kernel.name, "n": n, "d": d, "tile": 2048, "b": 1, "m": pool,
+             "ms": (km1 + km2) / 2, "plain_ms": (pm1 + pm2) / 2, "library_ms": None,
+             "rival": None, "rival_ms": None, "step_ms": step_ms,
+             "step_plain_ms": step_plain_ms, "matmul_topk_ms": ref_way,
+             "bound_ms": bound[0], "bound_by": bound[1]}
+        report.setdefault("timings", []).append(t)
+        rows.append(t)
+        del index, q, mask
+        torch.cuda.empty_cache()
+    for t in rows:
+        ref = (f"{t['matmul_topk_ms']:.4f}" if t["matmul_topk_ms"] is not None
+               else "n/a (no int8 x int8 product at B=1)")
+        print(f"shard: {t['kernel']:22s} {t['n']} x {t['d']}, tile 2048, B=1, m {t['m']}: "
+              f"kernel {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, {t['bound_by']}; "
+              f"{t['ms'] / t['bound_ms']:.1f}x), plain twin {t['plain_ms']:.4f}; per-shard "
+              f"step {t['step_ms']:.4f}, plain step {t['step_plain_ms']:.4f}; "
+              f"torch.matmul + torch.topk {ref}")
+    report["shard"]["kernels"] = rows
+
+
+@contextlib.contextmanager
+def exact_scan_branch():
+    """Within the block the single-device hybrid program takes the
+    reference's exact branch at every size (``program._scan_tile`` -> None:
+    a full [B, N] score matrix and a stable top-pool per leg), the semantics
+    of the sharded program. The package itself never makes that choice: this
+    swaps the function here."""
+    from cqs_tpu_torch.search import program
+
+    real = program._scan_tile
+    program._scan_tile = lambda n: None
+    try:
+        yield
+    finally:
+        program._scan_tile = real
+
+
+def shard_engine_run(torch, dev, report, path_run) -> None:
+    """The engine's sharded branch at the repository corpus: with
+    ``mesh_shards=4`` on one card the engine logs the reference's warning
+    and serves from one device; the phase then places the index on
+    ``Mesh([dev] * 4)`` itself and runs the queries through
+    ``engine.search``. Their top 5 must equal, within 1e-5, the single-device
+    engine's on the exact branch (each leg's exact top-pool: the sharded
+    program's semantics) and the 1-shard mesh's, and they must launch
+    ``LOOP_CC``. Against the default single-device program, whose candidates
+    are each tile's top 64, the equal top-5 lists are counted, not held.
+    Only the placements and the sharded runs go through ``path_run`` (the
+    sharded path's count); the index build and the single-device runs fall
+    outside it."""
+    import logging
+
+    from cqs_tpu_torch.cli.context import CommandContext
+    from cqs_tpu_torch.cli.main import main
+    from cqs_tpu_torch.ops.topk import LOOP_CC
+    from cqs_tpu_torch.parallel import Mesh, ShardedHybridIndex
+
+    tmp = Path(tempfile.mkdtemp(prefix="cqs_shard_"))
+    records: list = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    search_log = logging.getLogger("cqs_tpu.search")
+    try:
+        proj = tmp / "corpus"
+        proj.mkdir()
+        copy_corpus(proj)
+        rc, _, ms = run_cli(main, ["index", "--path", str(proj), "--device", str(dev), "--json"])
+        if rc != 0:
+            fail(f"shard: index exited {rc}")
+        search_log.addHandler(handler)
+        with knobs({"CQST_MESH_SHARDS": "4"}):
+            ctx = CommandContext.create(str(proj), device=dev)
+            eng = ctx.engine
+        search_log.removeHandler(handler)
+        warned = [r.getMessage() for r in records if "mesh sharding unavailable" in r.getMessage()]
+        # (off the card a 4-shard CPU mesh is legal: the rehearsal's engine shards)
+        if dev.type == "cuda" and (eng.sharded is not None or not warned):
+            fail(f"shard: mesh_shards=4 on {torch.cuda.device_count()} card(s) did not fall "
+                 f"back to one device with the reference's warning ({warned})")
+        eng.sharded = None
+
+        def top5():
+            eng._result_cache = {}
+            return {q: [(h.row.id, h.score) for h in eng.search(q, limit=5).hits]
+                    for q in QUERIES}
+
+        default = top5()
+        with exact_scan_branch():
+            exact = top5()
+        def sharded_run(shards):
+            eng.sharded = ShardedHybridIndex.from_indexes(eng.dense, eng.sparse,
+                                                          Mesh([dev] * shards))
+            # (queries the sharded branch does not take, on the base index,
+            # run the exact branch as in the run they are held to: plain
+            # PyTorch, no kernel)
+            with exact_scan_branch():
+                return top5()
+
+        runs, launched = {}, 0
+        for shards in (4, 1):
+            runs[shards], delta = path_run(lambda shards=shards: sharded_run(shards))
+            launched += delta[LOOP_CC.name]
+            if {k for k, x in delta.items() if x} - {LOOP_CC.name}:
+                fail(f"shard: the engine's run on {shards} shard(s) launched {delta}: only "
+                     f"{LOOP_CC.name} (each shard's exact top-500) belongs to the sharded path")
+        for q in QUERIES:
+            for label, want in (("the exact single-device program", exact[q]),
+                                ("1 shard", runs[1][q])):
+                if not same_hits(runs[4][q], want):
+                    fail(f"shard: engine top 5 of {q!r} on 4 shards differs from {label}: "
+                         f"{runs[4][q]} vs {want}")
+        if dev.type == "cuda" and launched == 0:
+            fail(f"shard: the engine's sharded queries did not launch {LOOP_CC.name}")
+        as_default = sum(same_hits(runs[4][q], default[q]) for q in QUERIES)
+        ctx.close()
+        print(f"shard: engine at the repository corpus ({eng.dense.count} rows, capacity "
+              f"{eng.dense.capacity}, 4 shards of {eng.dense.capacity // 4}): "
+              f"mesh_shards=4 warned ({warned[:1]}); on Mesh([{dev}] * 4) the {len(QUERIES)} "
+              f"queries' top 5 equal the exact single-device program's and 1 shard's; "
+              f"{as_default} of {len(QUERIES)} equal the default program's (per-tile "
+              f"candidates: another union, another min-max); {LOOP_CC.name} launched "
+              f"{launched} times")
+        report["shard"]["engine"] = {"queries": len(QUERIES), "loop_cc_launches": launched,
+                                     "equal_to_default_program": as_default,
+                                     "index_s": ms / 1e3}
+    finally:
+        search_log.removeHandler(handler)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_shard(torch, dev, seed: int, report, smi: str, geometry=SHARD_GEOMETRY) -> dict:
+    """Mesh-sharded hybrid serving on one card: ``ShardedHybridIndex``
+    from ``from_row_blocks`` over ``Mesh([dev] * N)`` (N logical shards)
+    and over ``Mesh([dev])``, in modes 0 (bf16), 1 (q8) and 2 (sk8);
+    ``sharded_search_legs`` for each query; then the engine's sharded
+    branch. Returns the launches of the path runs: the placements and the
+    sharded queries, each with every count set to 0 just before and read
+    just after (``path_run``); the comparisons with the plain steps, the
+    timings and the engine's single-device runs fall outside them."""
+    import numpy as np
+
+    from cqs_tpu_torch.ops.topk import IMPLS
+    from cqs_tpu_torch.parallel import Mesh, ShardedHybridIndex
+    from cqs_tpu_torch.parallel.sharded_hybrid import sharded_search_legs
+
+    g = geometry
+    n, d, t, s, v, n_sh, pool = g["n"], g["d"], g["t"], g["s"], g["v"], g["shards"], g["pool"]
+    report["shard"] = {"geometry": dict(g), "modes": {}}
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    mat, ids, w = shard_corpus(torch, dev, seed, n, d, t, v)
+    gen_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 5)
+    q_rows = rng.choice(n, size=g["queries"], replace=False)
+    qs = []
+    for r in q_rows:
+        qd = mat[r] / np.linalg.norm(mat[r])
+        qs.append((torch.from_numpy(qd.astype(np.float32)).to(dev),
+                   torch.from_numpy(ids[r].copy()).to(dev), torch.from_numpy(w[r].copy()).to(dev)))
+    names = [f"r{i}" for i in range(n)]
+
+    def block_fn(lo, hi):
+        return mat[lo:hi], ids[lo:hi], w[lo:hi]
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    path: dict[str, int] = {k.name: 0 for k in IMPLS}
+
+    def path_run(fn):
+        """fn() with every count set to 0 just before and read just after;
+        the counts are added to the sharded path's."""
+        for k in IMPLS:
+            k.launches = 0
+        out = fn()
+        sync()
+        counts = {k.name: k.launches for k in IMPLS}
+        for k, x in counts.items():
+            path[k] += x
+        return out, counts
+
+    print(f"shard: corpus {n} x {d}, T {t}, S {s}, vocab {v} drawn on the card in "
+          f"{gen_s:.1f} s; {g['queries']} queries (a row's vector and its {t} terms), pool "
+          f"{pool}, alpha {g['alpha']}")
+    for mode in (0, 1, 2):
+        res = {}
+        built = {}
+        for shards in (n_sh, 1):
+            t0 = time.perf_counter()
+            idx, delta = path_run(lambda shards=shards: ShardedHybridIndex.from_row_blocks(
+                names, v, Mesh([dev] * shards), block_fn, n, d, t, sketch_dim=s, q8=mode))
+            if any(delta.values()):
+                fail(f"shard: mode {mode}: the placement launched {delta}")
+            built[shards] = idx
+            res[f"build_s_{shards}"] = time.perf_counter() - t0
+        idx = built[n_sh]
+        per_shard = []
+        for i in range(n_sh):
+            tensors = [x[i] for x in (idx.matrix, idx.doc_ids, idx.doc_w, idx.sketch,
+                                      idx.sketch_i8, idx.dense_i8) if x is not None]
+            per_shard.append(sum(x.numel() * x.element_size() for x in tensors))
+        formula, row_bytes = shard_row_bytes(mode, d, s, t)
+        budget = idx.rows_per_shard * row_bytes
+        outs = {}
+        for shards, ix in built.items():
+            sh = ix.shards()
+
+            def run(sh=sh, ix=ix):
+                return [sharded_search_legs(sh, *q, g["alpha"], pool, ix.q8, ix.vocab_size)
+                        for q in qs]
+
+            outs[shards], delta = path_run(run)
+            want = {}
+            for name in SHARD_SCANS[mode] if on_card else ():
+                want[name] = want.get(name, 0) + shards * len(qs)
+            got = {k: x for k, x in delta.items() if x}
+            if got != want:
+                fail(f"shard: mode {mode}, {shards} shard(s): launches {got}, expected {want} "
+                     f"(per shard per query: {SHARD_SCANS[mode]})")
+        for qi, (a, b) in enumerate(zip(outs[n_sh], outs[1])):
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                fail(f"shard: mode {mode}: query {qi} on {n_sh} shards differs from 1 shard")
+        # the plain per-shard step on the card, query by query
+        checks = []
+        for qi, q in enumerate(qs):
+            log: list = []
+            with plain_shard_scans(log):
+                plain = sharded_search_legs(idx.shards(), *q, g["alpha"], pool, idx.q8,
+                                            idx.vocab_size)
+            checks.append(shard_pool_check(torch, f"mode {mode}, query {qi}", outs[n_sh][qi],
+                                           plain, log, n_sh, idx.rows_per_shard, pool))
+        pc = {k: sum(c[k] for c in checks) for k in checks[0] if k != "max_fused_diff"}
+        pc["max_fused_diff"] = max(c["max_fused_diff"] for c in checks)
+        # B=1 wall (host clock around a synchronized call, median over the
+        # queries) and device-busy for N and 1 shards
+        for shards, ix in built.items():
+            sh = ix.shards()
+            ms = []
+            for q in qs:
+                t1 = time.perf_counter()
+                sharded_search_legs(sh, *q, g["alpha"], pool, ix.q8, ix.vocab_size)
+                sync()
+                ms.append((time.perf_counter() - t1) * 1e3)
+            res[f"b1_ms_{shards}"] = statistics.median(ms)
+            if on_card:
+                busy, by_kernel, launches, _ = device_busy(
+                    torch, lambda: sharded_search_legs(sh, *qs[0], g["alpha"], pool, ix.q8,
+                                                       ix.vocab_size), 5)
+                res[f"busy_ms_{shards}"] = busy
+                res[f"launches_{shards}"] = launches
+                res[f"scan_busy_ms_{shards}"] = sum(x for k, x in by_kernel.items()
+                                                    if "scan_topk_kernel" in k)
+        top1 = float(np.mean([int(o[1][0, 0]) == int(r) for o, r in zip(outs[n_sh], q_rows)]))
+        res.update({"per_shard_bytes": per_shard, "budget_bytes": budget, "pool_check": pc,
+                    "top1_is_query_row": top1})
+        report["shard"]["modes"][mode] = res
+        print(f"shard: mode {mode} ({['bf16', 'q8', 'sk8'][mode]}): built {n_sh} shards in "
+              f"{res[f'build_s_{n_sh}']:.1f} s, 1 shard in {res['build_s_1']:.1f} s; bytes a "
+              f"shard {', '.join(f'{b / 1e9:.4f}' for b in per_shard)} GB against "
+              f"{formula} = {budget / 1e9:.4f} GB (docs/scale-10m.md); "
+              f"{n_sh} shards == 1 shard bit for bit on {len(qs)} queries; top-1 is the query's "
+              f"row {top1:.4f}")
+        print(f"shard: mode {mode}: kernels against the plain per-shard step: {pc['slots']} "
+              f"slots, {pc['same_slot_rows']} hold the same row, {pc['rows_in_one_pool_only']} "
+              f"rows in one pool only (each a near-tie), max |fused diff| "
+              f"{pc['max_fused_diff']:.3g}; B=1 median {res[f'b1_ms_{n_sh}']:.3f} ms on "
+              f"{n_sh} shards, {res['b1_ms_1']:.3f} ms on 1 (host clock)"
+              + (f"; device-busy {res[f'busy_ms_{n_sh}']:.3f} / {res['busy_ms_1']:.3f} ms "
+                 f"({res[f'launches_{n_sh}']:.0f} / {res['launches_1']:.0f} launches), "
+                 f"of it the scans {res[f'scan_busy_ms_{n_sh}']:.3f} / "
+                 f"{res['scan_busy_ms_1']:.3f} ms" if on_card else ""))
+        del built, idx, outs
+        if on_card:
+            torch.cuda.empty_cache()
+    del mat, ids, w
+    shard_engine_run(torch, dev, report, path_run)
+    if on_card:
+        shard_kernel_times(torch, dev, seed, report, n // n_sh, pool)
+    print(f"shard: card {smi}")
+    report["shard"]["path_launches"] = path
+    return path
 
 
 # -- phase 6: the warm daemon over its socket -----------------------------------
@@ -3059,7 +3516,8 @@ def phase_train(torch, dev, report, smi: str, recipes=TRAIN_RECIPES, max_pairs: 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="kernels,e2e,commands,scale,serve,neural,graph,train")
+    ap.add_argument("--phases",
+                    default="kernels,e2e,commands,scale,shard,serve,neural,graph,train")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not (REPO / "cqs_tpu_torch" / "__init__.py").is_file():
@@ -3072,7 +3530,8 @@ def main() -> int:
     import numpy as np
 
     from cqs_tpu_torch.ops import _kernels
-    from cqs_tpu_torch.ops.topk import IMPLS, KERNELS, LOOP_SPLIT, LOOP_SPLIT_I8
+    from cqs_tpu_torch.ops.topk import (IMPLS, KERNELS, LOOP_CC, LOOP_I8_CC, LOOP_SPLIT,
+                                        LOOP_SPLIT_I8)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -3108,6 +3567,22 @@ def main() -> int:
         for k in (*KERNELS, LOOP_SPLIT, LOOP_SPLIT_I8):
             if k.launches == 0:
                 fail(f"kernel {k.name} was not launched on the main path")
+    # the sharded path: each of its runs zeroes the counts just before and
+    # reads them just after (phase_shard); comparisons and timings outside
+    for k in IMPLS:
+        k.launches = 0
+    shard_launches = {k.name: 0 for k in IMPLS}
+    if "shard" in phases:
+        shard_launches = phase_shard(torch, dev, args.seed, report, smi)
+        print(f"launches on the sharded path: {shard_launches}")
+        for k in (LOOP_CC, LOOP_I8_CC):
+            if shard_launches[k.name] == 0:
+                fail(f"kernel {k.name} was not launched on the sharded path")
+        stray = {k: x for k, x in shard_launches.items()
+                 if x and k not in (LOOP_CC.name, LOOP_I8_CC.name)}
+        if stray:
+            fail(f"the sharded path launched {stray}: at pool 500 a shard's scans are "
+                 f"{LOOP_CC.name} / {LOOP_I8_CC.name} only")
     # the ported commands' path: zeroed just before, read just after
     for k in IMPLS:
         k.launches = 0
@@ -3181,10 +3656,12 @@ def main() -> int:
         bound = bound_ms(k.kind, *case[:2], case[3], case[2], case[4])
         kernels.append({"name": k.name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces,
-                        "launches": (launches[k.name] + commands_launches[k.name]
+                        "launches": (launches[k.name] + shard_launches[k.name]
+                                     + commands_launches[k.name]
                                      + serve_launches[k.name] + neural_launches[k.name]
                                      + graph_launches[k.name] + train_launches[k.name]),
                         "main_path_launches": launches[k.name],
+                        "shard_path_launches": shard_launches[k.name],
                         "commands_path_launches": commands_launches[k.name],
                         "daemon_path_launches": serve_launches[k.name],
                         "neural_path_launches": neural_launches[k.name],

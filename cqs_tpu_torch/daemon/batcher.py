@@ -5,7 +5,9 @@ the socket server's client threads. Concurrent default searches (no filters) col
 ``daemon_batch_window_ms`` or ``daemon_max_batch`` entries, embed as one
 batch and run ONE device program on the engine's device
 (``hybrid_query_batch``, or the engine's int8 program when ``scan_q8``
-selects one, as on the solo path); hydration
+selects one, as on the solo path); an engine serving a sharded index
+(``mesh_shards``) answers each query solo, through the sharded program;
+hydration
 and scoring fan back out per query through the engine's shared host stage,
 so a batched query returns what the solo path returns. Over a
 ``TieredServing`` each query is batched on the engine that answers it solo
@@ -189,9 +191,12 @@ class QueryBatcher:
             index = eng._pick_dense_index(cls)
             # alpha 1 (dense only): the solo path runs the exact dense-only
             # program, whose pool the hybrid batch program's per-tile and
-            # sketch candidates would not reproduce; the reference batches it
+            # sketch candidates would not reproduce; the reference batches it.
+            # A sharded engine (mesh_shards): the solo path runs the sharded
+            # program, whose pool is each leg's exact global top-pool; the
+            # reference's batcher has no sharded branch and batches it
             if (cls.strategy is Strategy.NAME_ONLY or eng.sparse is None
-                    or index is None or alpha >= 1.0
+                    or eng.sharded is not None or index is None or alpha >= 1.0
                     or eng.sparse.capacity != index.capacity
                     or eng.sparse.ids_digest != index.ids_digest):
                 solo.append(p)

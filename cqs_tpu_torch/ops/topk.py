@@ -473,3 +473,43 @@ def scan_topk(index: torch.Tensor, queries: torch.Tensor, k: int,
     queries = scan_query(index, queries)
     vals, rows = scan_tiles(index, queries, mask, tile_n, m, grouped)
     return merge_tiles(vals, rows, k)
+
+
+# -- one shard's exact top-k ---------------------------------------------------
+
+#: scan tiles a shard's rows may be cut into, largest first
+SHARD_TILES = (2048, 1024, 512, 256, 128, 64, 32)
+
+
+def shard_scan_rows(rows: int) -> int:
+    """Rows a shard's scan tensors hold: its rows padded with masked rows up
+    to a multiple of 32, the narrowest tile the kernels take."""
+    return -(-max(rows, 1) // 32) * 32
+
+
+def shard_geometry(rows: int, k: int) -> tuple[int, int, int]:
+    """(scan rows, tile, per-tile k) of one shard's exact top-``k`` over
+    ``rows`` rows: the tile is the largest of :data:`SHARD_TILES` dividing
+    the padded rows, and the per-tile k is min(k, tile), which keeps the
+    union of the tiles' lists a superset of the exact top-k."""
+    n = shard_scan_rows(rows)
+    tile = next(t for t in SHARD_TILES if n % t == 0)
+    return n, tile, min(k, tile)
+
+
+def shard_topk(rows: torch.Tensor, queries: torch.Tensor, k: int, mask: torch.Tensor):
+    """One shard's exact top-``k`` (vals [B, k] f32, local rows [B, k]
+    int32), descending, ties to the lower row: the per-shard step of the
+    sharded programs (``parallel/sharded_hybrid.py``). ``rows`` holds a
+    multiple of 32 rows (:func:`shard_scan_rows`; the padding masked) and
+    ``k`` is at most its valid row count. On a CUDA tensor it runs
+    :func:`scan_topk` at :func:`shard_geometry`, so the exact per-tile
+    kernel of the row kind is launched (``LOOP_CC`` / ``LOOP_I8_CC`` at
+    m > 128); on a CPU tensor it runs the reference's own formulation, a
+    full f32 score vector and one stable top-k (:func:`topk_plain`). Slots
+    past the valid rows hold NEG; their rows differ between the two, and
+    callers read them as empty."""
+    if not rows.is_cuda:
+        return topk_plain(rows, queries, k, mask)
+    _, tile, m = shard_geometry(rows.shape[0], k)
+    return scan_topk(rows, queries, k, mask, tile_n=tile, per_tile_k=m)

@@ -39,7 +39,11 @@ dirty files' rows and merges hits from an ephemeral ``DenseIndex`` of their
 current content (``store/overlay.py``). :class:`TieredServing` routes
 whole queries by router category to a second slot's engine (a distilled
 tier). :meth:`SearchEngine.search_with_rrf` fuses the FTS leg's ranks into a
-search's order on the host. Not ported (it raises or is absent): mesh sharding.
+search's order on the host. The ``mesh_shards`` knob row-shards the hybrid
+index over a one-process device mesh (``parallel/sharded_hybrid.py``;
+``_maybe_shard``): unfiltered hybrid queries on the dense index then run the
+sharded program, each shard's exact top-pool per leg, placed and dropped with
+the indexes under ``index_lock``.
 """
 
 from __future__ import annotations
@@ -80,10 +84,6 @@ DENSE_FILE = "dense.npz"
 DENSE_BASE_FILE = "dense_base.npz"
 SPLADE_FILE = "splade.npz"
 CENTROIDS_FILE = "classifier_centroids.json"
-
-#: knob -> value the slice supports; anything else is a path not yet ported
-_UNPORTED_KNOBS = {"mesh_shards": 0}
-
 
 def bf16_extraction(capacity: int, batch: int, knob: str = "grouped",
                     min_rows: int = 131072) -> str:
@@ -181,16 +181,13 @@ class SearchEngine:
         self.lim = lim or (config.limits if config else default_limits)
         self.config = config
         self.root = Path(root) if root else (config.root if config else None)
-        for knob, want in _UNPORTED_KNOBS.items():
-            if getattr(self.lim, knob) != want:
-                raise NotImplementedError(
-                    f"knob {knob}={getattr(self.lim, knob)!r} selects a path not "
-                    f"yet ported to cqs_tpu_torch (see ROADMAP)")
         self.dense: DenseIndex | None = None
         self.dense_base: DenseIndex | None = None
         self.sparse: SpladeIndex | None = None
         #: optional ANN tier for dense-only queries (``index_kind`` knob)
         self.ann: GraphIndex | TieredIndex | None = None
+        #: mesh-sharded hybrid serving (``mesh_shards`` knob)
+        self.sharded = None
         self._overlay = None
         #: held by a refresh while it mutates or swaps the indexes, and by a
         #: query from its index pick to its program's results (module docstring)
@@ -240,14 +237,45 @@ class SearchEngine:
                 sparse = self._load_or_build_sparse(dense)
             ann = self._maybe_build_ann(dense)
             with self.index_lock:
+                # drop the sharded copy first: it holds the old row layout,
+                # and no query may hydrate old-layout rows through new ids
+                self.sharded = None
                 self.dense, self.dense_base, self.sparse = dense, base, sparse
                 self.ann = ann
                 self._row_of = dense.row_of if dense else {}
                 self._result_cache = {}
                 self.index_generation += 1
+                self._maybe_shard()
             # pre-warm the host lexical index off-thread (lexical tier only)
             if self.embedder.preset.lexical_tier and self.lim.host_lexical:
                 self._legs_pool.submit(self._get_host_lex)
+
+    def _maybe_shard(self) -> None:
+        """Row-shard the live hybrid index over a device mesh when the
+        ``mesh_shards`` knob asks for one (-1 = every local device of the
+        engine's device type: the CUDA cards, or the CPU's one device).
+        Serving then runs the sharded hybrid program: per-shard scans, the
+        candidates merged on the mesh's first device. The row numbering is
+        the dense index's own, so hydration is unchanged. A mesh larger than
+        the devices fails in ``make_mesh``: single-device serving, with a
+        warning (``engine.py:367-391``)."""
+        self.sharded = None
+        n = self.lim.mesh_shards
+        if n == 0 or self.dense is None or self.sparse is None or not self.dense.count:
+            return
+        from cqs_tpu_torch.parallel.mesh import local_device_count, make_mesh
+        from cqs_tpu_torch.parallel.sharded_hybrid import ShardedHybridIndex
+
+        if n < 0:
+            n = local_device_count(self.device.type)
+        if n <= 1:
+            return
+        try:
+            mesh = make_mesh(n, device=self.device.type)
+            self.sharded = ShardedHybridIndex.from_indexes(self.dense, self.sparse, mesh)
+            log.info("serving hybrid index row-sharded over %d devices", n)
+        except Exception as e:
+            log.warning("mesh sharding unavailable (%s); single-device serving", e)
 
     def _maybe_build_ann(self, dense: DenseIndex | None = None):
         """The optional ANN tier over ``dense`` (default: the serving dense
@@ -423,6 +451,10 @@ class SearchEngine:
             if aligned:
                 self._row_of = self.dense.row_of
                 self._result_cache = {}
+                # the sharded copy holds the pre-mutation tensors: re-place
+                self._maybe_shard()
+            else:
+                self.sharded = None             # until the rebuild below
         if not aligned:
             self.load_or_build_indexes()
             return {"rebuilt": True, "reason": "alignment"}
@@ -576,11 +608,23 @@ class SearchEngine:
                       alpha: float, pool: int, fmask: np.ndarray | None,
                       code_only: bool = False):
         """The device program for one query: the hybrid program when the
-        sparse index is row-aligned with ``index`` and alpha < 1; else the
+        sparse index is row-aligned with ``index`` and alpha < 1 (the sharded
+        program when ``mesh_shards`` placed one and the query is unfiltered
+        on the dense index; else the screened, int8 or bf16 program); else the
         ANN tier when there is one, the query is unfiltered and ``index`` is
         the dense index; else the exact dense-only program. Returns host numpy
         (fused, rows, dense leg, sparse leg or None)."""
         code = self._code_mask(index) if code_only else None
+        sparse_ok = (self.sparse is not None and alpha < 1.0
+                     and self.sparse.capacity == index.capacity
+                     and self.sparse.ids_digest == index.ids_digest)
+        if (sparse_ok and self.sharded is not None and index is self.dense
+                and fmask is None and self.sharded.ids is index.ids):
+            # mesh-sharded serving: rows scanned on their home shard, the
+            # candidates merged on the first device; the default code-only
+            # filter rides as the sharded aux mask
+            q_ids, q_w = self.splade.encode(query, is_query=True)
+            return self.sharded.search_legs(q_vec, q_ids, q_w, alpha, pool, aux_mask=code)
         cmask = fmask
         if code is not None:
             cmask = code if cmask is None else cmask * code
@@ -594,9 +638,6 @@ class SearchEngine:
                 valid = valid * torch.from_numpy(fm).to(self.device)
         dev = self.device
         q_t = torch.from_numpy(np.array(q_vec, np.float32)).to(dev)
-        sparse_ok = (self.sparse is not None and alpha < 1.0
-                     and self.sparse.capacity == index.capacity
-                     and self.sparse.ids_digest == index.ids_digest)
         if sparse_ok:
             q_ids, q_w = self.splade.encode(query, is_query=True)
             q_ids2, q_w2 = trim_query_terms(q_ids[None], q_w[None])

@@ -146,7 +146,6 @@ def _exact_rescore_fuse(doc_ids, doc_w, valid_mask, q_ids, q_w, alphas,
     ids in [:, :T] and the f32 weights' bits in [:, T:] (:func:`pack_terms`).
     The rescore is the gather form: query terms scatter into a [B, V] vocab
     vector, gathered at the candidates' term ids."""
-    b, c = rows.shape
     r = rows.long()
     if doc_w is None:
         t2 = doc_ids.shape[1]
@@ -156,13 +155,22 @@ def _exact_rescore_fuse(doc_ids, doc_w, valid_mask, q_ids, q_w, alphas,
     else:
         ids_c = doc_ids[r]
         w_c = doc_w[r].to(torch.float32)
+    return _rescore_fuse_gathered(ids_c, w_c, valid_mask[r] > 0, q_ids, q_w, alphas,
+                                  rows, d_c, pool, vocab_size)
+
+
+def _rescore_fuse_gathered(ids_c, w_c, row_valid, q_ids, q_w, alphas, rows, d_c,
+                           pool: int, vocab_size: int):
+    """:func:`_exact_rescore_fuse` on the candidates' gathered terms:
+    ``ids_c`` / ``w_c`` [B, C, T] and ``row_valid`` [B, C] bool (the sharded
+    program gathers them from the rows' home shards)."""
+    b = rows.shape[0]
     qv = torch.zeros(b * vocab_size, dtype=torch.float32, device=rows.device)
     flat = (torch.arange(b, device=rows.device)[:, None] * vocab_size
             + q_ids.long()).reshape(-1)
     qv.index_put_((flat,), q_w.to(torch.float32).reshape(-1), accumulate=True)
     qv_at = qv.view(b, vocab_size).gather(1, ids_c.reshape(b, -1).long())
     s_exact = (qv_at.view(ids_c.shape) * w_c).sum(dim=-1)        # [B, C]
-    row_valid = valid_mask[r] > 0
     neg = torch.full_like(s_exact, NEG)
     s_exact = torch.where(row_valid & (s_exact > 0.0), s_exact, neg)
     d_c = torch.where(row_valid, d_c, neg)

@@ -9,7 +9,7 @@
 (c) The port's engine on the fixture project with ``scan_q8=1``,
     ``scan_q8=2`` and ``screen_enable=1`` (both modes): the selected program
     is the one that ran, solo equals the ``QueryBatcher`` for q8 and sk8, and
-    the knobs still unported raise.
+    ``mesh_shards`` (once refused) serves the single-device top 5.
 
 Tolerances: rows exact; values rtol 1e-5 / atol 1e-6."""
 
@@ -220,10 +220,35 @@ def test_engine_runs_the_selected_program(tmp_project, monkeypatch, route):
 
 @pytest.mark.parametrize("knob,value", [("CQST_MESH_SHARDS", "2")])
 def test_unported_knobs_still_raise(tmp_project, monkeypatch, knob, value):
+    # the knob's guard is gone (mesh sharding is ported): a --device cpu
+    # context builds a 2-shard engine whose top 5 equal the single-device
+    # engine's
+    from cqs_tpu_torch.parallel.sharded_hybrid import ShardedHybridIndex
+
+    queries = QUERIES + ["authentication helpers", "revoke an active session"]
+    assert main(["index", "--path", str(tmp_project), "--device", "cpu"]) == 0
+    ctx = CommandContext.create(str(tmp_project), device="cpu")
+    try:
+        assert ctx.engine.sharded is None
+        single = {q: _hits(ctx.engine.search(q, limit=5)) for q in queries}
+    finally:
+        ctx.close()
+    calls = []
+    real = ShardedHybridIndex.search_legs
+    monkeypatch.setattr(ShardedHybridIndex, "search_legs",
+                        lambda self, *a, **kw: calls.append(1) or real(self, *a, **kw))
     monkeypatch.setenv(knob, value)
     ctx = CommandContext.create(str(tmp_project), device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            _ = ctx.engine
+        sharded = ctx.engine.sharded
+        assert sharded is not None and sharded.mesh.size == int(value)
+        for q in queries:
+            got = _hits(ctx.engine.search(q, limit=5))
+            assert got, q
+            assert [i for i, _ in got] == [i for i, _ in single[q]], q
+            assert np.allclose([s for _, s in got], [s for _, s in single[q]],
+                               rtol=0, atol=1e-5), q
+        # the unknown-category queries (alpha 0.8) ran the sharded program
+        assert len(calls) >= 3
     finally:
         ctx.close()

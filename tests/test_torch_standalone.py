@@ -84,6 +84,7 @@ PORTED = (
     "models/reranker.py",
     "index/graph.py", "index/tiered.py", "store/overlay.py", "ops/project2d.py",
     "parallel/__init__.py", "parallel/train.py",
+    "parallel/mesh.py", "parallel/sharded_hybrid.py",
 )
 
 #: ``store/store.py``'s difference from its original, all of it (the other
@@ -243,7 +244,7 @@ MODEL_SOURCES = ("models/__init__.py", "models/bert.py", "models/convert.py",
                  "models/embedder.py", "models/gemma.py", "models/hybrid.py",
                  "models/layers.py", "models/loader.py", "models/reranker.py",
                  "models/splade.py", "search/engine.py", "cli/context.py", "cli/commands.py",
-                 "parallel/train.py")
+                 "parallel/train.py", "parallel/mesh.py", "parallel/sharded_hybrid.py")
 
 
 def imported_roots(source: str) -> set[str]:
