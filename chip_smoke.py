@@ -27,7 +27,9 @@ Phases, each fatal on error (non-zero exit, no result line):
    function). The tensor-core kernels also where an MMA design breaks:
    widths 16/24/48/256/1024/4096, not multiples of 16 or of the K-chunk; B
    3 and 65 and the batcher's rungs; tiles 128 (one row a group, one slice) to 16384;
-   m up to 128, a fully masked tile. int8 x int8 (and integer-valued bf16)
+   m up to 128, a fully masked tile; the split kernels also at m 129/256/500/512
+   (lists of 256 and 512 keys, slices of fewer rows than m, the merge of 16
+   slices' 512-key lists). int8 x int8 (and integer-valued bf16)
    must equal the twin exactly, slot for slot; random bf16 within a score
    near-tie;
 4. e2e: index a copy of this repository's sources through the port's CLI,
@@ -72,19 +74,28 @@ Phases, each fatal on error (non-zero exit, no result line):
    ``ShardedHybridIndex.from_row_blocks`` over ``Mesh([cuda:0] * 4)`` (four
    logical shards of 262,144 rows) and over ``Mesh([cuda:0])``, in modes 0
    (bf16), 1 (q8) and 2 (sk8), each shard's bytes printed against that doc's
-   budget; 64 queries (a row's vector and its terms, pool 500, alpha 0.8)
+   budget (the scan rows, padding included: at most 2,047 a shard); 64
+   queries (a row's vector and its terms, pool 500, alpha 0.8)
    through ``sharded_search_legs``: 4 shards must equal 1 shard bit for bit,
    the kernels' pools must match the plain per-shard step's on the card
-   (``pool_check``'s rule), and each shard's scans must launch ``LOOP_CC`` /
-   ``LOOP_I8_CC`` exactly as the mode implies (mode 0: 2 ``LOOP_CC`` a
-   shard a query; mode 1: 2 ``LOOP_I8_CC``; mode 2: one each); B=1 median
-   and device-busy ms for 4 and 1 shards; both kernels at a shard's scans
-   (262,144 x 768 and x 1024, m 500) against their plain twins, their
-   bound, the per-shard step and ``torch.matmul`` + ``torch.topk``. Then the
-   engine at the repository corpus: ``mesh_shards=4`` on one card must warn
-   and serve from one device; on an explicit ``Mesh([cuda:0] * 4)`` the
-   queries' top 5 must equal the single-device engine's and launch
-   ``LOOP_CC``;
+   (``pool_check``'s rule), and each shard's scans must launch the split
+   kernels exactly as the mode implies (mode 0: 2 ``LOOP_SPLIT`` a shard a
+   query; mode 1: 2 ``LOOP_SPLIT_I8``; mode 2: one each) and never the
+   template (``LOOP_CC`` / ``LOOP_I8_CC``); B=1 median and device-busy ms
+   for 4 and 1 shards; both split kernels at a shard's scans (262,144 x 768
+   and x 1024, m 500) against their plain twins, in turns with the template
+   they replaced there, again at m 4 (the scan without the selection),
+   against their bound, the per-shard step (and its tile merge alone) and
+   one library way (``torch.matmul`` + ``torch.topk``; int8:
+   ``torch._int_mm`` on the query padded to 8 rows + ``torch.topk``); a
+   shard that is not a power of two (250,000 x 768, padded to whole tiles)
+   through ``shard_topk`` against ``topk_plain``. Then the engine at the
+   repository corpus: ``mesh_shards=4`` on one card must warn and serve
+   from one device; on an explicit ``Mesh([cuda:0] * 4)`` the queries' top
+   5 must equal the single-device engine's and launch ``LOOP_SPLIT``. Last,
+   shards under 128 rows (8 of 40 rows, pool 100, modes 0 and 1), the
+   template's one program: exactly 2 ``LOOP_CC`` (mode 0) or ``LOOP_I8_CC``
+   (mode 1) a shard a query, pools held to the plain per-shard step's;
 6. serve: the warm daemon, in this process plus threads: ``DaemonServer``
    over a micro-batching ``BatchContext`` on the repository corpus, asked
    over its Unix socket by 1, 4 and 16 client threads (queries per second,
@@ -145,7 +156,8 @@ Phases, each fatal on error (non-zero exit, no result line):
 
 The kernels' launch counters are zeroed before phase 4 and read after
 phase 5, read just before and just after each run of phase 5b's path (the
-sharded path must launch ``LOOP_CC`` and ``LOOP_I8_CC``), zeroed again before
+sharded path must launch ``LOOP_SPLIT`` and ``LOOP_SPLIT_I8`` and nothing
+else, its small shards ``LOOP_CC`` and ``LOOP_I8_CC``), zeroed again before
 phase 4b and read after it, and again around
 phase 6, phase 7, phase 8 and phase 9 (the split bf16 loop kernel must have
 launched from the commands' path, the socket path, the neural path, the
@@ -156,9 +168,11 @@ does a split loop kernel that did not, a search of phase 4 whose solo or
 batched program did not launch the split kernel, a widening kernel that
 did not launch in phase 3, and any module of JAX or of the JAX package
 (``cqs_tpu``) in ``sys.modules`` at the end. The CUDA-core template's bf16
-and int8 x int8 instances serve only m > 128 and tiles that are not whole
-128-row sub-tiles: the shard phase's per-shard top-pool (m 500) is their
-one program. The third-to-last line is a
+and int8 x int8 instances serve only m > 512 and tiles that are not whole
+128-row sub-tiles: their program is a shard under 128 rows, phase 5b's
+small shards, whose launches are counted on a path of their own (zeroed
+just before, read just after); they are also held to their twins in phase
+3 and timed beside the split kernels in phase 5b. The third-to-last line is a
 JSON object with each kernel's launches, error, times, bound and library
 time; then the card's name and power limit; the last is ``{"ok": true,
 "device": {...}}``. Needs one CUDA card; exits non-zero without one or
@@ -226,11 +240,15 @@ LIBRARY_CALLS = {"scan_topk_grouped_i8": "torch._int_mm: the score product only,
                  "not the same function",
                  "scan_topk_loop_split": "torch.matmul: the bf16 score product only, "
                  "not the same function"}
+#: the library way of a shard's exact top-pool, one per row kind (two calls each)
+SHARD_LIBRARY = {"bf16": "torch.matmul + torch.topk",
+                 "i8": "torch._int_mm (query padded to 8 rows) + torch.topk"}
 #: (rows, width, tile, B, m) of each kernel's entry on the kernels line: the
 #: split loop kernel at a repository-size solo query's sketch scan (bf16)
 #: and at the screened program's scan (int8); the CUDA-core templates at a
 #: shard's scans in the shard phase (262,144 rows, m = pool 500: the bf16
-#: dense scan, the int8 sketch scan); the widening kernel at 1,048,576 x 1024
+#: dense scan, the int8 sketch scan), timed there in turns with the split
+#: kernels that replaced them; the widening kernel at 1,048,576 x 1024
 #: B=1 m 4; the grouped kernels at their B=128 sketch scan
 KERNEL_CASES = {
     "scan_topk_loop_split": (4096, 1024, 2048, 1, 64),
@@ -322,39 +340,51 @@ def check_grouped_i8(torch, dev, seed: int) -> int:
     return cases
 
 
-def check_loop_split(torch, dev, seed: int) -> int:
+#: check_loop_split's grids: (widths, batch sizes, tiles, per-tile ks).
+#: "narrow", m <= 128: B 3 and 65 and every batch size the batcher pads to
+#: (None: 1/4/8/16/32/64/128, each built query block, 8, 16 and 32, and a
+#: second block), tiles 128, 2048 and 16384 (1 to 16 slices, so the merge
+#: kernel runs), m 128 on 128-row tiles (m equal to a slice); "wide", m
+#: 129-512: lists of 256 and 512 keys in 8-query blocks (B 65: 9 blocks),
+#: slices of fewer rows than m (tiles 512 and 2048: 128-row slices at B 1, 3)
+#: and 16 slices' 512-key lists merged (tile 16384, 64 KiB)
+SPLIT_CHECKS = {"narrow": ((16, 48, 256, 768, 1024, 4096), None, (128, 2048, 16384),
+                           (4, 16, 64, 128)),
+                "wide": ((16, 768, 1024), (1, 3, 65), (512, 2048, 16384), (129, 256, 500, 512))}
+
+
+def check_loop_split(torch, dev, seed: int, grid: str = "narrow") -> int:
     """The split loop kernel's two kinds slot for slot equal to the loop
-    twin where the design breaks: int8 x int8 (full range, -128 included)
-    and bf16 on integer values (exact f32 sums in any order, many ties);
-    widths 16/48/256/768/1024/4096; B 3 and 65 and every batch size the batcher
-    pads to (1/4/8/16/32/64/128: each built query block, 8, 16 and 32, and a
-    second block); tiles 128, 2048 and 16384 (1 to 16 slices, so the
-    merge kernel runs); m 4/16/64/128 (m 128 on 128-row tiles: m equal to a
-    slice, and slots past a tile's valid rows); 2% of rows masked, and rows
-    4096-6143, a fully masked tile at tiles up to 2048. Own generator.
+    twin where the design breaks, over one grid of :data:`SPLIT_CHECKS`:
+    int8 x int8 (full range, -128 included) and bf16 on integer values
+    (exact f32 sums in any order, many ties); 2% of rows masked, rows
+    4096-6143 masked (a fully masked tile at tiles up to 2048) and rows
+    6144-8191 but three (slots past a tile's valid rows). Own generator.
     Returns the number of cases."""
     from cqs_tpu_torch.daemon.batcher import BATCH_RUNGS
     from cqs_tpu_torch.ops.topk import LOOP_SPLIT, LOOP_SPLIT_I8, scan_topk_plain_loop
 
-    gen = torch.Generator(device=dev).manual_seed(seed + 7919)
+    widths, batches, tiles, ms = SPLIT_CHECKS[grid]
+    gen = torch.Generator(device=dev).manual_seed(seed + 7919 + 8 * (grid == "wide"))
     n, cases = 32768, 0
     for kernel in (LOOP_SPLIT_I8, LOOP_SPLIT):
-        for d in (16, 48, 256, 768, 1024, 4096):
+        for d in widths:
             if kernel is LOOP_SPLIT_I8:
                 index = torch.randint(-128, 128, (n, d), device=dev, generator=gen,
                                       dtype=torch.int8)
             else:
                 index = torch.randint(-8, 9, (n, d), device=dev, generator=gen).to(torch.bfloat16)
             mask = (torch.rand(n, device=dev, generator=gen) > 0.02).to(torch.int32)
-            mask[4096:6144] = 0
-            for b in sorted({3, 65, *BATCH_RUNGS}):
+            mask[4096:8192] = 0
+            mask[[6200, 7000, 8191]] = 1
+            for b in batches or sorted({3, 65, *BATCH_RUNGS}):
                 if kernel is LOOP_SPLIT_I8:
                     q = torch.randint(-128, 128, (b, d), device=dev, generator=gen,
                                       dtype=torch.int8)
                 else:
                     q = torch.randint(-3, 4, (b, d), device=dev, generator=gen).to(torch.bfloat16)
-                for tile in (128, 2048, 16384):
-                    for m in (4, 16, 64, 128):
+                for tile in tiles:
+                    for m in ms:
                         compare_exact(kernel, scan_topk_plain_loop, index, q, mask, tile, m,
                                       f"{kernel.name} d={d} b={b} tile={tile} m={m}")
                         cases += 1
@@ -512,7 +542,11 @@ def phase_kernels(torch, dev, rng, seed, report):
     print(f"kernels: {LOOP_SPLIT.name} (bf16, integer values) and {LOOP_SPLIT_I8.name} exact "
           f"at {cases} cases: widths 16/48/256/768/1024/4096, B 3/65 and the batcher's rungs "
           f"1/4/8/16/32/64/128, tiles 128-16384 "
-          f"(1-16 slices), m 4/16/64/128, a fully masked tile")
+          f"(1-16 slices), m 4/16/64/128, a fully masked tile, one of 3 valid rows")
+    cases = check_loop_split(torch, dev, seed, "wide")
+    print(f"kernels: {LOOP_SPLIT.name} and {LOOP_SPLIT_I8.name} exact at m 129/256/500/512 "
+          f"({cases} cases: widths 16/768/1024, B 1/3/65, tiles 512/2048/16384, slices of "
+          f"fewer rows than m, 16 slices' 512-key lists merged)")
     for name, index, q, mask, tile, m in adversarial_cases(torch, dev, rng):
         for kernel in (LOOP_SPLIT, LOOP_CC, GROUPED):
             check(kernel, index, q, mask, tile, m, f"{kernel.name}/{name}")
@@ -1448,11 +1482,15 @@ def phase_scale(torch, dev, rng, report, n: int = SCALE_ROWS):
 #: shards on the one card; 64 queries at the engine's pool and alpha 0.8
 SHARD_GEOMETRY = {"n": SCALE_ROWS, "d": 768, "t": 128, "s": 1024, "v": 30522, "shards": 4,
                   "queries": 64, "pool": 500, "alpha": 0.8}
-#: (kernel, rows kind, width) of the per-shard scans each placement launches:
-#: mode 0 bf16 dense and sketch, mode 1 int8 both, mode 2 bf16 dense and int8 sketch
-SHARD_SCANS = {0: ("scan_topk_loop_cc", "scan_topk_loop_cc"),
-               1: ("scan_topk_loop_i8_cc", "scan_topk_loop_i8_cc"),
-               2: ("scan_topk_loop_cc", "scan_topk_loop_i8_cc")}
+#: the kernels of the per-shard scans each placement launches (the split
+#: kernels at m = pool 500): mode 0 bf16 dense and sketch, mode 1 int8 both,
+#: mode 2 bf16 dense and int8 sketch
+SHARD_SCANS = {0: ("scan_topk_loop_split", "scan_topk_loop_split"),
+               1: ("scan_topk_loop_split_i8", "scan_topk_loop_split_i8"),
+               2: ("scan_topk_loop_split", "scan_topk_loop_split_i8")}
+#: the split kernel's and merge kernel's names in a profile (the template's
+#: is ``scan_topk_kernel``)
+SCAN_KERNEL_NAMES = ("loop_split_kernel", "merge_slices_kernel", "scan_topk_kernel")
 
 
 def shard_row_bytes(mode: int, d: int, s: int, t: int) -> tuple[str, int]:
@@ -1549,65 +1587,150 @@ def shard_pool_check(torch, label: str, kernel_out, plain_out, log, n_shards: in
             "rows_in_one_pool_only": strays, "max_fused_diff": worst}
 
 
+def same_topk(torch, index, q, mask, got, want, label: str, exact: bool) -> None:
+    """A shard's top-k (vals, rows) against the plain step's: equal where
+    the sums are exact (int8 x int8), else values within rtol/atol and a
+    differing row only at a score near-tie (the rows' full f32 scores)."""
+    (gv, gr), (wv, wr) = got, want
+    if exact:
+        if not (torch.equal(gv, wv) and torch.equal(gr, wr)):
+            fail(f"{label}: the per-shard step differs from the plain step")
+        return
+    if not torch.allclose(gv, wv, rtol=RTOL, atol=ATOL):
+        fail(f"{label}: per-shard step values differ from the plain step "
+             f"(max |err| {(gv - wv).abs().max().item()})")
+    diff = gr != wr
+    if diff.any():
+        full = torch.where(mask[None, :] > 0, q.float() @ index.float().T,
+                           torch.full((q.shape[0], index.shape[0]), -3.0e38, device=q.device))
+        b_idx = torch.arange(q.shape[0], device=q.device)[:, None].expand_as(gr)
+        a = full[b_idx[diff], gr[diff].long()]
+        c = full[b_idx[diff], wr[diff].long()]
+        if not torch.all((a - c).abs() <= ATOL + RTOL * c.abs()):
+            fail(f"{label}: {int(diff.sum())} rows of the per-shard step differ beyond a "
+                 f"score near-tie")
+
+
+def shard_inputs(torch, dev, gen, kind: str, n: int, d: int):
+    """A shard's scan rows, a B=1 query and a mask (2% masked): bf16 random
+    normal, or int8 x int8 full range."""
+    if kind == "bf16":
+        index = torch.randn(n, d, device=dev, generator=gen).to(torch.bfloat16)
+        q = torch.randn(1, d, device=dev, generator=gen).to(torch.bfloat16)
+    else:
+        index = torch.randint(-127, 128, (n, d), device=dev, generator=gen, dtype=torch.int8)
+        q = torch.randint(-127, 128, (1, d), device=dev, generator=gen, dtype=torch.int8)
+    mask = (torch.rand(n, device=dev, generator=gen) > 0.02).to(torch.int32)
+    return index, q, mask
+
+
+def shard_library_call(torch, kind: str, index, q, pool: int):
+    """The library way of a shard's top-pool (:data:`SHARD_LIBRARY`): a full
+    score vector from one product call, then ``torch.topk``."""
+    if kind == "bf16":
+        return lambda: torch.topk(torch.matmul(q, index.t()), pool)
+    q8 = torch.zeros(8, q.shape[1], dtype=torch.int8, device=q.device)
+    q8[:1] = q
+    qt = q8.t().contiguous()                  # [D, 8]: index @ qt, column 0 is the query's
+    return lambda: torch.topk(torch._int_mm(index, qt)[:, 0], pool)
+
+
 def shard_kernel_times(torch, dev, seed: int, report, n: int, pool: int) -> None:
-    """``LOOP_CC`` and ``LOOP_I8_CC`` at one shard's scans (n rows x 768 and
-    x 1024, tile 2048, m = pool, B=1): each against its plain twin (held
-    slot by slot, timed in turns), the whole per-shard step (kernel + tile
-    merge) against the plain per-shard step (full score vector + stable
-    top-k), and, for bf16, the reference's way: one ``torch.matmul`` into a
-    full bf16 score vector and one ``torch.topk`` (not the same values:
-    the product rounds to bf16)."""
-    from cqs_tpu_torch.ops.topk import (LOOP_CC, LOOP_I8_CC, scan_topk_plain_loop, shard_topk,
-                                        topk_plain)
+    """The split kernels at one shard's scans (n rows x 768 and x 1024, tile
+    2048, m = pool, B=1): each held against its plain twin (int8 exactly,
+    bf16 by ``compare_tiles``) and timed in turns with it and with the
+    template it replaced on this path (``LOOP_CC`` / ``LOOP_I8_CC``, the
+    rival: plain, kernel, rival, rival, kernel, plain), then at m 4 (the scan
+    without the selection); the whole per-shard step (kernel + tile merge)
+    and the tile merge alone, against the plain per-shard step (full score
+    vector + stable top-k); the library way (:data:`SHARD_LIBRARY`). Then a
+    shard that is not a power of two (250,000 x 768 rows padded to whole
+    2,048-row tiles by ``shard_scan_rows``) through ``shard_topk`` against
+    ``topk_plain``, in both row kinds; each must launch its split kernel."""
+    from cqs_tpu_torch.ops.topk import (LOOP_CC, LOOP_I8_CC, LOOP_SPLIT, LOOP_SPLIT_I8,
+                                        merge_tiles, scan_topk_plain_loop, shard_geometry,
+                                        shard_scan_rows, shard_topk, topk_plain)
 
     errs = report.setdefault("errs", {})
     rows = []
-    for kernel, d in ((LOOP_CC, 768), (LOOP_CC, 1024), (LOOP_I8_CC, 768), (LOOP_I8_CC, 1024)):
-        gen = torch.Generator(device=dev).manual_seed(seed + n + d + (kernel is LOOP_I8_CC))
-        if kernel is LOOP_CC:
-            index = torch.randn(n, d, device=dev, generator=gen).to(torch.bfloat16)
-            q = torch.randn(1, d, device=dev, generator=gen).to(torch.bfloat16)
-        else:
-            index = torch.randint(-127, 128, (n, d), device=dev, generator=gen,
-                                  dtype=torch.int8)
-            q = torch.randint(-127, 128, (1, d), device=dev, generator=gen, dtype=torch.int8)
-        mask = (torch.rand(n, device=dev, generator=gen) > 0.02).to(torch.int32)
-        label = f"{kernel.name} n={n} d={d} tile=2048 b=1 m={pool}"
-        cmp = compare_exact if kernel.kind == "i8" else compare_tiles
-        err = cmp(kernel, scan_topk_plain_loop, index, q, mask, 2048, pool, label)
-        errs[kernel.name] = max(errs.get(kernel.name, 0.0), err)
-        sv, sr = shard_topk(index, q, pool, mask)
-        pv, pr = topk_plain(index, q, pool, mask)
-        if not (torch.equal(sr, pr) if kernel.kind == "i8" else torch.allclose(
-                sv, pv, rtol=RTOL, atol=ATOL)):
-            fail(f"{label}: the per-shard step differs from the plain step")
-        pm1 = cuda_ms(lambda: scan_topk_plain_loop(index, q, mask, 2048, pool), 5)
-        km1 = cuda_ms(lambda: kernel(index, q, mask, 2048, pool), 10)
-        km2 = cuda_ms(lambda: kernel(index, q, mask, 2048, pool), 10)
-        pm2 = cuda_ms(lambda: scan_topk_plain_loop(index, q, mask, 2048, pool), 5)
-        step_ms = cuda_ms(lambda: shard_topk(index, q, pool, mask), 10)
+    for kernel, rival, d in ((LOOP_SPLIT, LOOP_CC, 768), (LOOP_SPLIT, LOOP_CC, 1024),
+                             (LOOP_SPLIT_I8, LOOP_I8_CC, 768), (LOOP_SPLIT_I8, LOOP_I8_CC, 1024)):
+        kind = kernel.kind
+        gen = torch.Generator(device=dev).manual_seed(seed + n + d + (kind == "i8"))
+        index, q, mask = shard_inputs(torch, dev, gen, kind, n, d)
+        label = f"n={n} d={d} tile=2048 b=1 m={pool}"
+        cmp = compare_exact if kind == "i8" else compare_tiles
+        for k in (kernel, rival):
+            err = cmp(k, scan_topk_plain_loop, index, q, mask, 2048, pool, f"{k.name} {label}")
+            errs[k.name] = max(errs.get(k.name, 0.0), err)
+        same_topk(torch, index, q, mask, shard_topk(index, q, pool, mask),
+                  topk_plain(index, q, pool, mask), f"shard step {label} ({kind})", kind == "i8")
+
+        def plain():
+            return scan_topk_plain_loop(index, q, mask, 2048, pool)
+
+        def split():
+            return kernel(index, q, mask, 2048, pool)
+
+        def templ():
+            return rival(index, q, mask, 2048, pool)
+
+        pm1, km1 = cuda_ms(plain, 5), cuda_ms(split, 20)
+        rm = [cuda_ms(templ, 10) for _ in (0, 1)]
+        km2, pm2 = cuda_ms(split, 20), cuda_ms(plain, 5)
+        m4_ms = cuda_ms(lambda: kernel(index, q, mask, 2048, 4), 20)
+        tv, tr = split()
+        merge_ms = cuda_ms(lambda: merge_tiles(tv, tr, pool), 20)
+        step_ms = cuda_ms(lambda: shard_topk(index, q, pool, mask), 20)
         step_plain_ms = cuda_ms(lambda: topk_plain(index, q, pool, mask), 10)
-        ref_way = (cuda_ms(lambda: torch.topk(torch.matmul(q, index.t()), pool), 10)
-                   if kernel.kind == "bf16" else None)
-        bound = bound_ms(kernel.kind, n, d, 1, 2048, pool)
+        lib_ms = cuda_ms(shard_library_call(torch, kind, index, q, pool), 20)
+        bound = bound_ms(kind, n, d, 1, 2048, pool)
         t = {"kernel": kernel.name, "n": n, "d": d, "tile": 2048, "b": 1, "m": pool,
-             "ms": (km1 + km2) / 2, "plain_ms": (pm1 + pm2) / 2, "library_ms": None,
-             "rival": None, "rival_ms": None, "step_ms": step_ms,
-             "step_plain_ms": step_plain_ms, "matmul_topk_ms": ref_way,
+             "ms": (km1 + km2) / 2, "plain_ms": (pm1 + pm2) / 2, "library_ms": lib_ms,
+             "library_call": SHARD_LIBRARY[kind], "rival": rival.name,
+             "rival_ms": sum(rm) / 2, "m4_ms": m4_ms, "step_ms": step_ms,
+             "merge_ms": merge_ms, "step_plain_ms": step_plain_ms,
              "bound_ms": bound[0], "bound_by": bound[1]}
         report.setdefault("timings", []).append(t)
         rows.append(t)
-        del index, q, mask
+        del index, q, mask, tv, tr
         torch.cuda.empty_cache()
     for t in rows:
-        ref = (f"{t['matmul_topk_ms']:.4f}" if t["matmul_topk_ms"] is not None
-               else "n/a (no int8 x int8 product at B=1)")
-        print(f"shard: {t['kernel']:22s} {t['n']} x {t['d']}, tile 2048, B=1, m {t['m']}: "
-              f"kernel {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, {t['bound_by']}; "
-              f"{t['ms'] / t['bound_ms']:.1f}x), plain twin {t['plain_ms']:.4f}; per-shard "
-              f"step {t['step_ms']:.4f}, plain step {t['step_plain_ms']:.4f}; "
-              f"torch.matmul + torch.topk {ref}")
+        print(f"shard: {t['kernel']:23s} {t['n']} x {t['d']}, tile 2048, B=1, m {t['m']}: "
+              f"kernel {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, {t['bound_by']}: "
+              f"{t['bound_ms'] / t['ms']:.0%} of it), at m 4 {t['m4_ms']:.4f}; "
+              f"{t['rival']} {t['rival_ms']:.4f} in turns; plain twin {t['plain_ms']:.4f}; "
+              f"per-shard step {t['step_ms']:.4f} (tile merge {t['merge_ms']:.4f}), plain step "
+              f"{t['step_plain_ms']:.4f}; {t['library_call']} {t['library_ms']:.4f}")
+    # a shard that is not a power of two: padded with masked rows to whole tiles
+    odd = []
+    for kernel, d in ((LOOP_SPLIT, 768), (LOOP_SPLIT_I8, 768)):
+        kind = kernel.kind
+        rows_n = 250_000
+        n_s, tile, m = shard_geometry(rows_n, pool)
+        gen = torch.Generator(device=dev).manual_seed(seed + rows_n + (kind == "i8"))
+        index, q, mask = shard_inputs(torch, dev, gen, kind, n_s, d)
+        mask[rows_n:] = 0
+        if n_s != shard_scan_rows(rows_n) or n_s % tile or n_s - rows_n >= 2048:
+            fail(f"shard: {rows_n} rows padded to {n_s} rows in tiles of {tile}")
+        before = kernel.launches
+        got = shard_topk(index, q, pool, mask)
+        torch.cuda.synchronize()
+        if kernel.launches != before + 1:
+            fail(f"shard: a {rows_n}-row shard's step did not launch {kernel.name}")
+        same_topk(torch, index, q, mask, got, topk_plain(index, q, pool, mask),
+                  f"shard step {rows_n} rows ({kind})", kind == "i8")
+        if int(got[1].max()) >= rows_n:
+            fail(f"shard: a padding row left the {rows_n}-row shard")
+        odd.append({"kernel": kernel.name, "rows": rows_n, "scan_rows": n_s, "tile": tile,
+                    "m": m, "step_ms": cuda_ms(lambda: shard_topk(index, q, pool, mask), 20)})
+        del index, q, mask
+    for o in odd:
+        print(f"shard: a {o['rows']}-row shard (x 768) padded to {o['scan_rows']} rows, tile "
+              f"{o['tile']}, m {o['m']}: {o['kernel']}, equal to the plain step; per-shard step "
+              f"{o['step_ms']:.4f} ms")
     report["shard"]["kernels"] = rows
+    report["shard"]["odd_shards"] = odd
 
 
 @contextlib.contextmanager
@@ -1635,7 +1758,8 @@ def shard_engine_run(torch, dev, report, path_run) -> None:
     ``engine.search``. Their top 5 must equal, within 1e-5, the single-device
     engine's on the exact branch (each leg's exact top-pool: the sharded
     program's semantics) and the 1-shard mesh's, and they must launch
-    ``LOOP_CC``. Against the default single-device program, whose candidates
+    ``LOOP_SPLIT`` (each shard's exact top-500) and no other kernel. Against
+    the default single-device program, whose candidates
     are each tile's top 64, the equal top-5 lists are counted, not held.
     Only the placements and the sharded runs go through ``path_run`` (the
     sharded path's count); the index build and the single-device runs fall
@@ -1644,7 +1768,7 @@ def shard_engine_run(torch, dev, report, path_run) -> None:
 
     from cqs_tpu_torch.cli.context import CommandContext
     from cqs_tpu_torch.cli.main import main
-    from cqs_tpu_torch.ops.topk import LOOP_CC
+    from cqs_tpu_torch.ops.topk import LOOP_SPLIT
     from cqs_tpu_torch.parallel import Mesh, ShardedHybridIndex
 
     tmp = Path(tempfile.mkdtemp(prefix="cqs_shard_"))
@@ -1691,10 +1815,11 @@ def shard_engine_run(torch, dev, report, path_run) -> None:
         runs, launched = {}, 0
         for shards in (4, 1):
             runs[shards], delta = path_run(lambda shards=shards: sharded_run(shards))
-            launched += delta[LOOP_CC.name]
-            if {k for k, x in delta.items() if x} - {LOOP_CC.name}:
+            launched += delta[LOOP_SPLIT.name]
+            if {k for k, x in delta.items() if x} - {LOOP_SPLIT.name}:
                 fail(f"shard: the engine's run on {shards} shard(s) launched {delta}: only "
-                     f"{LOOP_CC.name} (each shard's exact top-500) belongs to the sharded path")
+                     f"{LOOP_SPLIT.name} (each shard's exact top-500) belongs to the sharded "
+                     f"path")
         for q in QUERIES:
             for label, want in (("the exact single-device program", exact[q]),
                                 ("1 shard", runs[1][q])):
@@ -1702,7 +1827,7 @@ def shard_engine_run(torch, dev, report, path_run) -> None:
                     fail(f"shard: engine top 5 of {q!r} on 4 shards differs from {label}: "
                          f"{runs[4][q]} vs {want}")
         if dev.type == "cuda" and launched == 0:
-            fail(f"shard: the engine's sharded queries did not launch {LOOP_CC.name}")
+            fail(f"shard: the engine's sharded queries did not launch {LOOP_SPLIT.name}")
         as_default = sum(same_hits(runs[4][q], default[q]) for q in QUERIES)
         ctx.close()
         print(f"shard: engine at the repository corpus ({eng.dense.count} rows, capacity "
@@ -1710,9 +1835,9 @@ def shard_engine_run(torch, dev, report, path_run) -> None:
               f"mesh_shards=4 warned ({warned[:1]}); on Mesh([{dev}] * 4) the {len(QUERIES)} "
               f"queries' top 5 equal the exact single-device program's and 1 shard's; "
               f"{as_default} of {len(QUERIES)} equal the default program's (per-tile "
-              f"candidates: another union, another min-max); {LOOP_CC.name} launched "
+              f"candidates: another union, another min-max); {LOOP_SPLIT.name} launched "
               f"{launched} times")
-        report["shard"]["engine"] = {"queries": len(QUERIES), "loop_cc_launches": launched,
+        report["shard"]["engine"] = {"queries": len(QUERIES), "split_launches": launched,
                                      "equal_to_default_program": as_default,
                                      "index_s": ms / 1e3}
     finally:
@@ -1720,18 +1845,85 @@ def shard_engine_run(torch, dev, report, path_run) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def phase_shard(torch, dev, seed: int, report, smi: str, geometry=SHARD_GEOMETRY) -> dict:
+#: shards under 128 rows, the sharded programs' one use of the CUDA-core
+#: template: 320 rows in 8 shards of 40 (each padded to one 64-row tile),
+#: pool 100
+SMALL_SHARDS = {"rows": 320, "shards": 8, "queries": 8, "pool": 100}
+
+
+def small_shard_run(torch, dev, seed: int, report, g: dict, run) -> None:
+    """Shards under 128 rows, whose tiles are not whole 128-row sub-tiles, so
+    each shard's scans take the CUDA-core template: ``ShardedHybridIndex``
+    of :data:`SMALL_SHARDS` at the phase's widths over ``Mesh([dev] * 8)``,
+    modes 0 (``LOOP_CC``) and 1 (``LOOP_I8_CC``), each query through
+    ``sharded_search_legs`` inside ``run`` (the small-shard path's count):
+    on the card exactly 2 launches a shard a query of the mode's template
+    and nothing else; each query's pool held to the plain per-shard step's
+    (:func:`shard_pool_check`)."""
+    import numpy as np
+
+    from cqs_tpu_torch.ops.topk import loop_impl, shard_geometry
+    from cqs_tpu_torch.parallel import Mesh, ShardedHybridIndex
+    from cqs_tpu_torch.parallel.sharded_hybrid import sharded_search_legs
+
+    sm = SMALL_SHARDS
+    n, n_sh, pool = sm["rows"], sm["shards"], sm["pool"]
+    rng = np.random.default_rng(seed + 11)
+    mat = rng.normal(size=(n, g["d"])).astype(np.float32)
+    ids = rng.integers(0, g["v"], size=(n, g["t"])).astype(np.int32)
+    w = rng.lognormal(0.0, 0.8, size=(n, g["t"])).astype(np.float32)
+    q_rows = rng.choice(n, size=sm["queries"], replace=False)
+    qs = [(torch.from_numpy(mat[r] / np.linalg.norm(mat[r])).to(dev),
+           torch.from_numpy(ids[r].copy()).to(dev), torch.from_numpy(w[r].copy()).to(dev))
+          for r in q_rows]
+    out = {}
+    for mode, kernel in ((0, "scan_topk_loop_cc"), (1, "scan_topk_loop_i8_cc")):
+        idx = ShardedHybridIndex([f"s{i}" for i in range(n)], mat, ids, w, g["v"],
+                                 Mesh([dev] * n_sh), sketch_dim=g["s"], q8=mode)
+        n_s = idx.rows_per_shard
+        _, tile, m = shard_geometry(n_s, min(pool, n_s))
+        if loop_impl("bf16", tile, m) != "template":
+            fail(f"shard: a {n_s}-row shard (tile {tile}, m {m}) does not take the template")
+        shards = idx.shards()
+        got, delta = run(lambda: [sharded_search_legs(shards, *q, g["alpha"], pool, idx.q8,
+                                                      idx.vocab_size) for q in qs])
+        want = {kernel: 2 * n_sh * len(qs)} if dev.type == "cuda" else {}
+        if {k: x for k, x in delta.items() if x} != want:
+            fail(f"shard: {n_sh} shards of {n_s} rows, mode {mode}: launches {delta}, "
+                 f"expected {want}")
+        checks = []
+        for qi, q in enumerate(qs):
+            log: list = []
+            with plain_shard_scans(log):
+                plain = sharded_search_legs(shards, *q, g["alpha"], pool, idx.q8,
+                                            idx.vocab_size)
+            checks.append(shard_pool_check(torch, f"small shards, mode {mode}, query {qi}",
+                                           got[qi], plain, log, n_sh, n_s, pool))
+        out[mode] = {"rows_per_shard": n_s, "tile": tile, "m": m,
+                     "rows_in_one_pool_only": sum(c["rows_in_one_pool_only"] for c in checks),
+                     "max_fused_diff": max(c["max_fused_diff"] for c in checks)}
+        print(f"shard: {n_sh} shards of {n_s} rows (tile {tile}, m {m}), mode {mode}: "
+              f"{kernel} {delta[kernel]} launches; pools against the plain per-shard step: "
+              f"{out[mode]['rows_in_one_pool_only']} rows in one pool only, max |fused diff| "
+              f"{out[mode]['max_fused_diff']:.3g}")
+    report["shard"]["small_shards"] = out
+
+
+def phase_shard(torch, dev, seed: int, report, smi: str,
+                geometry=SHARD_GEOMETRY) -> tuple[dict, dict]:
     """Mesh-sharded hybrid serving on one card: ``ShardedHybridIndex``
     from ``from_row_blocks`` over ``Mesh([dev] * N)`` (N logical shards)
     and over ``Mesh([dev])``, in modes 0 (bf16), 1 (q8) and 2 (sk8);
     ``sharded_search_legs`` for each query; then the engine's sharded
-    branch. Returns the launches of the path runs: the placements and the
-    sharded queries, each with every count set to 0 just before and read
-    just after (``path_run``); the comparisons with the plain steps, the
-    timings and the engine's single-device runs fall outside them."""
+    branch and shards under 128 rows (:func:`small_shard_run`). Returns the
+    launches of the path runs: the placements and the sharded queries, each
+    with every count set to 0 just before and read just after
+    (``path_run``), and apart those of the small shards' queries; the
+    comparisons with the plain steps, the timings and the engine's
+    single-device runs fall outside them."""
     import numpy as np
 
-    from cqs_tpu_torch.ops.topk import IMPLS
+    from cqs_tpu_torch.ops.topk import IMPLS, shard_scan_rows
     from cqs_tpu_torch.parallel import Mesh, ShardedHybridIndex
     from cqs_tpu_torch.parallel.sharded_hybrid import sharded_search_legs
 
@@ -1759,18 +1951,22 @@ def phase_shard(torch, dev, seed: int, report, smi: str, geometry=SHARD_GEOMETRY
             torch.cuda.synchronize()
 
     path: dict[str, int] = {k.name: 0 for k in IMPLS}
+    small: dict[str, int] = dict(path)
 
-    def path_run(fn):
+    def counted_run(fn, into: dict):
         """fn() with every count set to 0 just before and read just after;
-        the counts are added to the sharded path's."""
+        the counts are added to ``into``."""
         for k in IMPLS:
             k.launches = 0
         out = fn()
         sync()
         counts = {k.name: k.launches for k in IMPLS}
         for k, x in counts.items():
-            path[k] += x
+            into[k] += x
         return out, counts
+
+    def path_run(fn):
+        return counted_run(fn, path)
 
     print(f"shard: corpus {n} x {d}, T {t}, S {s}, vocab {v} drawn on the card in "
           f"{gen_s:.1f} s; {g['queries']} queries (a row's vector and its {t} terms), pool "
@@ -1793,7 +1989,15 @@ def phase_shard(torch, dev, seed: int, report, smi: str, geometry=SHARD_GEOMETRY
                                       idx.sketch_i8, idx.dense_i8) if x is not None]
             per_shard.append(sum(x.numel() * x.element_size() for x in tensors))
         formula, row_bytes = shard_row_bytes(mode, d, s, t)
-        budget = idx.rows_per_shard * row_bytes
+        # the budget over the scan rows: a shard's rows and the masked rows
+        # that pad it to whole tiles (at most 2,047)
+        scan_rows = shard_scan_rows(idx.rows_per_shard)
+        if scan_rows - idx.rows_per_shard >= 2048:
+            fail(f"shard: {idx.rows_per_shard} rows a shard padded to {scan_rows}")
+        budget = scan_rows * row_bytes
+        if max(per_shard) > budget:
+            fail(f"shard: mode {mode}: a shard holds {max(per_shard)} bytes, above "
+                 f"{formula} x {scan_rows} rows = {budget}")
         outs = {}
         for shards, ix in built.items():
             sh = ix.shards()
@@ -1841,16 +2045,18 @@ def phase_shard(torch, dev, seed: int, report, smi: str, geometry=SHARD_GEOMETRY
                                                        ix.vocab_size), 5)
                 res[f"busy_ms_{shards}"] = busy
                 res[f"launches_{shards}"] = launches
-                res[f"scan_busy_ms_{shards}"] = sum(x for k, x in by_kernel.items()
-                                                    if "scan_topk_kernel" in k)
+                res[f"scan_busy_ms_{shards}"] = sum(
+                    x for k, x in by_kernel.items() if any(nm in k for nm in SCAN_KERNEL_NAMES))
         top1 = float(np.mean([int(o[1][0, 0]) == int(r) for o, r in zip(outs[n_sh], q_rows)]))
-        res.update({"per_shard_bytes": per_shard, "budget_bytes": budget, "pool_check": pc,
+        res.update({"per_shard_bytes": per_shard, "budget_bytes": budget,
+                    "scan_rows": scan_rows, "pool_check": pc,
                     "top1_is_query_row": top1})
         report["shard"]["modes"][mode] = res
         print(f"shard: mode {mode} ({['bf16', 'q8', 'sk8'][mode]}): built {n_sh} shards in "
               f"{res[f'build_s_{n_sh}']:.1f} s, 1 shard in {res['build_s_1']:.1f} s; bytes a "
               f"shard {', '.join(f'{b / 1e9:.4f}' for b in per_shard)} GB against "
-              f"{formula} = {budget / 1e9:.4f} GB (docs/scale-10m.md); "
+              f"{formula} x {scan_rows} scan rows ({scan_rows - idx.rows_per_shard} padding) = "
+              f"{budget / 1e9:.4f} GB (docs/scale-10m.md); "
               f"{n_sh} shards == 1 shard bit for bit on {len(qs)} queries; top-1 is the query's "
               f"row {top1:.4f}")
         print(f"shard: mode {mode}: kernels against the plain per-shard step: {pc['slots']} "
@@ -1867,11 +2073,13 @@ def phase_shard(torch, dev, seed: int, report, smi: str, geometry=SHARD_GEOMETRY
             torch.cuda.empty_cache()
     del mat, ids, w
     shard_engine_run(torch, dev, report, path_run)
+    small_shard_run(torch, dev, seed, report, g, lambda fn: counted_run(fn, small))
     if on_card:
         shard_kernel_times(torch, dev, seed, report, n // n_sh, pool)
     print(f"shard: card {smi}")
     report["shard"]["path_launches"] = path
-    return path
+    report["shard"]["small_shard_launches"] = small
+    return path, small
 
 
 # -- phase 6: the warm daemon over its socket -----------------------------------
@@ -3572,17 +3780,22 @@ def main() -> int:
     for k in IMPLS:
         k.launches = 0
     shard_launches = {k.name: 0 for k in IMPLS}
+    small_launches = dict(shard_launches)
     if "shard" in phases:
-        shard_launches = phase_shard(torch, dev, args.seed, report, smi)
+        shard_launches, small_launches = phase_shard(torch, dev, args.seed, report, smi)
         print(f"launches on the sharded path: {shard_launches}")
+        print(f"launches on the small shards' path: {small_launches}")
         for k in (LOOP_CC, LOOP_I8_CC):
+            if small_launches[k.name] == 0:
+                fail(f"kernel {k.name} was not launched on the small shards' path")
+        for k in (LOOP_SPLIT, LOOP_SPLIT_I8):
             if shard_launches[k.name] == 0:
                 fail(f"kernel {k.name} was not launched on the sharded path")
         stray = {k: x for k, x in shard_launches.items()
-                 if x and k not in (LOOP_CC.name, LOOP_I8_CC.name)}
+                 if x and k not in (LOOP_SPLIT.name, LOOP_SPLIT_I8.name)}
         if stray:
             fail(f"the sharded path launched {stray}: at pool 500 a shard's scans are "
-                 f"{LOOP_CC.name} / {LOOP_I8_CC.name} only")
+                 f"{LOOP_SPLIT.name} / {LOOP_SPLIT_I8.name} only (no template)")
     # the ported commands' path: zeroed just before, read just after
     for k in IMPLS:
         k.launches = 0
@@ -3657,11 +3870,12 @@ def main() -> int:
         kernels.append({"name": k.name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces,
                         "launches": (launches[k.name] + shard_launches[k.name]
-                                     + commands_launches[k.name]
+                                     + small_launches[k.name] + commands_launches[k.name]
                                      + serve_launches[k.name] + neural_launches[k.name]
                                      + graph_launches[k.name] + train_launches[k.name]),
                         "main_path_launches": launches[k.name],
                         "shard_path_launches": shard_launches[k.name],
+                        "small_shard_path_launches": small_launches[k.name],
                         "commands_path_launches": commands_launches[k.name],
                         "daemon_path_launches": serve_launches[k.name],
                         "neural_path_launches": neural_launches[k.name],

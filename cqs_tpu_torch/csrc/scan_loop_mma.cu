@@ -8,7 +8,7 @@
 // for each tile of tile_n rows and each query, the m best (score, global
 // row) slots, descending, ties to the lower row; masked rows score NEG;
 // once a tile has no valid row left, the remaining slots hold NEG and the
-// tile's first row. Outputs are tile-major [num_tiles, B, m].
+// tile's first row. Outputs are tile-major [num_tiles, B, m], m <= 512.
 //
 // What bounds it: the rows, read once (a 4,096 x 1024 bf16 corpus is 8 MiB,
 // 2.5 us at 3.35 TB/s; 1M x 1024 is 2 GiB, 0.64 ms), or at large B the
@@ -27,7 +27,7 @@
 //     multiple of 128; the wrapper picks the count so the grid fills the
 //     card), one CTA per (tile, slice, query block);
 //   - a CTA keeps, per query, a running top-L list (L = m rounded up to a
-//     power of two, <= 128) in shared memory and folds each 128-row
+//     power of two, <= 512) in shared memory and folds each 128-row
 //     sub-tile into it: the sub-tile's keys that beat the list's m-th are
 //     packed (warp ballots) and padded with empty keys to a power of two
 //     n; n >= L: sorted in runs of L (bitonic), the runs reduced pairwise
@@ -43,13 +43,44 @@
 //   - with one slice the CTA writes the tile's slots; with more, it writes
 //     its top m keys to a scratch buffer the wrapper allocates, and a
 //     second kernel (merge_slices_kernel, one CTA per (tile, query)) merges
-//     the slices' lists by the same pairwise reduction.
+//     the slices' lists by the same pairwise reduction. A slice may hold
+//     fewer rows than m (a 2,048-row tile in 128-row slices at m 500): its
+//     list is its rows and empty keys (0), which lose to every real key,
+//     NEG rows included, so the tile's m slots are real rows (m <= tile_n).
 // A key is (score, row) as one 64-bit integer that orders like the
 // reference's rounds: the score's bits made monotone (-0 folded into +0,
 // which compare equal in the reference) above the row's complement, so a
 // larger key is a higher score or, on a tie, the lower row. Masked rows
 // keep their own rows under NEG; the slots that end on NEG take the tile's
 // first row, as the reference's rounds leave them.
+//
+// Large m (128 < m <= 512: a shard's exact top-500 in the sharded programs).
+//   - What bounds it is still the rows' bytes: a shard of 262,144 x 768 bf16
+//     is 0.40 GB, 0.121 ms at 3.35 TB/s (x 1024 int8: 0.27 GB, 0.081 ms).
+//     The m rounds of the CUDA-core template (scan_topk.cu) took 4.3-6.5x that
+//     at m 500: each round a block-wide argmax with two __syncthreads.
+//   - Folding a 128-row sub-tile into a 512-key list is one warp's bitonic
+//     sort of at most 128 keys (28 stages of 2 compare-exchanges a thread)
+//     and the merge into the list's tail, then one half-cleaner pass over
+//     the 512 keys (9 stages of 8): about 150 compare-exchanges a thread
+//     under __syncwarp in place of 500 block-wide rounds a tile. Sub-tiles
+//     none of whose keys beat the list's m-th are skipped, as at small m.
+//   - The wrapper takes a query block of 8 at m > 128 (a warp a query;
+//     B=1 takes 8 anyway): 4 ring stages and 8 x 672 keys are 110 KiB, so
+//     two CTAs share an SM and one streams rows while the other folds. The
+//     wrapper cuts tiles into slices only while the grid stays one wave of
+//     264 CTAs: at 262,144 rows and tile 2048, 2 slices of 1,024 rows (256
+//     CTAs), whose later sub-tiles skip more of the folds than 512-row
+//     slices can; the cp.async ring keeps the next chunks in flight while a
+//     warp folds.
+//   - Built: the bitonic lists of small m, widened, rather than a radix
+//     select of the m-th key over a slice's scores: they reuse the exact
+//     small-m code path (one kernel, one emulation, one set of tests) and
+//     hold no [QB, rows] score block. On an H100 the same launch at m 4 and
+//     m 500 shows the folds' share (PERF.md): a quarter to a third of the time
+//     at B=1, where one warp of the CTA folds while seven wait at the next
+//     barrier. A block-wide fold at B=1, or a radix select, is the next
+//     step if that share matters.
 //
 // Plain C ABI for ctypes: pointers and the stream as void*, returns a CUDA
 // error code (0 = launched; cudaErrorInvalidValue for a query block, m,
@@ -63,9 +94,10 @@ using namespace cqs;
 
 using Key = unsigned long long;
 
-constexpr int kMaxM = 128;           // per-tile k the kernel takes
+constexpr int kMaxM = 512;           // per-tile k the kernel takes
 constexpr int kMaxSlices = 16;       // slices a tile is cut into
-constexpr int kMergeThreads = 128;
+constexpr int kMergeThreads = 128;  // merge threads, 512 above 2,048 keys a CTA
+constexpr int kMergeThreadsWide = 512;
 
 // Ring depth: 4 stages, or 3 at QB 32, where a stage holds 20 KiB, so two
 // CTAs fit an SM at m <= 64.
@@ -331,7 +363,7 @@ loop_split_kernel(const unsigned char* __restrict__ q,     // [B, D] bf16 bits o
 }
 
 // One CTA per (tile, query): the slices' top-m lists -> the tile's m slots.
-__global__ void __launch_bounds__(kMergeThreads)
+__global__ void __launch_bounds__(kMergeThreadsWide)
 merge_slices_kernel(const Key* __restrict__ part,  // [tiles, B, slices, m]
                     float* __restrict__ out_v, int* __restrict__ out_i, int B, int tile_n,
                     int m, int lg, int slices) {
@@ -340,14 +372,15 @@ merge_slices_kernel(const Key* __restrict__ part,  // [tiles, B, slices, m]
   const int pair = blockIdx.x;                 // tile * B + b
   const int L = 1 << lg;
   const Key* src = part + (size_t)pair * slices * m;
-  for (int e = threadIdx.x; e < slices * L; e += kMergeThreads) {
+  const int nt = blockDim.x;
+  for (int e = threadIdx.x; e < slices * L; e += nt) {
     const int i = e & (L - 1);
     a[e] = i < m ? src[(e >> lg) * m + i] : 0;
   }
   __syncthreads();
-  reduce_runs(a, slices, lg, threadIdx.x, kMergeThreads, BlockSync{});
-  write_slots(a, m, threadIdx.x, kMergeThreads, out_v + (size_t)pair * m,
-              out_i + (size_t)pair * m, (pair / B) * tile_n);
+  reduce_runs(a, slices, lg, threadIdx.x, nt, BlockSync{});
+  write_slots(a, m, threadIdx.x, nt, out_v + (size_t)pair * m, out_i + (size_t)pair * m,
+              (pair / B) * tile_n);
 }
 
 template <int KIND, int QB>
@@ -378,8 +411,16 @@ int launch(const void* q, const void* rows, const void* mask, void* vals, void* 
       static_cast<Key*>(part), B, D, tile_n, m, lg, slices, nqb);
   err = cudaGetLastError();
   if (err != cudaSuccess || slices == 1) return (int)err;
+  // slices x L keys: 64 KiB at 16 x 512, above the 48 KiB a launch gets
+  // without the attribute
   const size_t merge_smem = ((size_t)slices << lg) * sizeof(Key);
-  merge_slices_kernel<<<tiles * B, kMergeThreads, merge_smem, stream>>>(
+  if (merge_smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(merge_slices_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)merge_smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int merge_threads = (slices << lg) > 2048 ? kMergeThreadsWide : kMergeThreads;
+  merge_slices_kernel<<<tiles * B, merge_threads, merge_smem, stream>>>(
       static_cast<const Key*>(part), static_cast<float*>(vals), static_cast<int*>(inds), B,
       tile_n, m, lg, slices);
   return (int)cudaGetLastError();

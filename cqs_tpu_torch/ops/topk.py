@@ -15,7 +15,9 @@ Port of ``cqs_tpu/ops/topk.py``. Two layers:
   the tensor-core kernel of ``csrc/scan_topk_mma.cu``. The bf16 and int8 x
   int8 loop kernels route by shape (:func:`loop_impl`) to the split
   tensor-core kernel of ``csrc/scan_loop_mma.cu`` (tiles cut into row
-  slices across CTAs, an exact per-slice top-m, a merge kernel) or to the
+  slices across CTAs, an exact per-slice top-m, a merge kernel; m <= 512,
+  which takes every program's per-tile k and a shard's exact top-500) or,
+  above m 512 and on tiles that are not whole 128-row sub-tiles, to the
   CUDA-core template of ``csrc/scan_topk.cu``, which also keeps the
   widening loop kernel. On a CPU tensor it runs the plain version.
 
@@ -43,9 +45,17 @@ MMA_MAX_TILE = 256 * GROUP_LANES
 #: Rows of the tensor-core kernels' sub-tile; a split slice is a multiple.
 SUB_TILE = 128
 #: Largest per-tile k of the split loop kernel (its per-query lists hold
-#: m rounded up to a power of two, at most 128 keys); a larger m, or a tile
+#: m rounded up to a power of two, at most 512 keys); a larger m, or a tile
 #: that is not a multiple of 128 rows, takes the CUDA-core template.
-SPLIT_MAX_M = 128
+SPLIT_MAX_M = 512
+#: Largest per-tile k at which the split kernel takes the wide query blocks;
+#: above it each query's list holds 256 or 512 keys and the block is
+#: :data:`SPLIT_WIDE_M_QUERY_BLOCK`.
+SPLIT_NARROW_M = 128
+#: Query block of the split kernel at m > :data:`SPLIT_NARROW_M`: a warp a
+#: query for the selection, and 110 KiB of ring and lists, so two CTAs share
+#: a streaming multiprocessor (a 32-query block would take 222 KiB).
+SPLIT_WIDE_M_QUERY_BLOCK = 8
 #: Most row slices a tile is cut into, and the CTA count the split aims for:
 #: two a streaming multiprocessor of an H100 (132).
 SPLIT_MAX_SLICES = 16
@@ -228,23 +238,34 @@ def mma_query_block(b: int) -> int:
     return next((qb for qb in MMA_QUERY_BLOCKS if qb >= b), MMA_QUERY_BLOCKS[-1])
 
 
-def split_query_block(b: int) -> int:
-    """Query block of the split loop kernel for a batch of ``b``: the
-    tensor-core kernels' block, at most :data:`SPLIT_MAX_QUERY_BLOCK`."""
+def split_query_block(b: int, m: int = 1) -> int:
+    """Query block of the split loop kernel for a batch of ``b`` at per-tile
+    k ``m``: the tensor-core kernels' block, at most
+    :data:`SPLIT_MAX_QUERY_BLOCK`; :data:`SPLIT_WIDE_M_QUERY_BLOCK` at m >
+    :data:`SPLIT_NARROW_M`."""
+    if m > SPLIT_NARROW_M:
+        return SPLIT_WIDE_M_QUERY_BLOCK
     return min(mma_query_block(b), SPLIT_MAX_QUERY_BLOCK)
 
 
-def split_slices(n: int, tile_n: int, b: int) -> int:
+def split_slices(n: int, tile_n: int, b: int, m: int = 1) -> int:
     """Row slices a tile is cut into by the split loop kernel: doubled from 1
     while the slices stay multiples of 128 rows, at most
     :data:`SPLIT_MAX_SLICES`, and the grid (tiles x slices x query blocks)
-    holds fewer than :data:`SPLIT_TARGET_CTAS` CTAs. 16 at the repository
-    corpus (4,096 rows, tile 2048, any B <= 64), 1 at 1,048,576 rows."""
+    holds fewer than :data:`SPLIT_TARGET_CTAS` CTAs; at m >
+    :data:`SPLIT_NARROW_M`, while the doubled grid still fits in one wave
+    of :data:`SPLIT_TARGET_CTAS` (two CTAs an SM): longer slices let more
+    sub-tiles skip the fold and leave fewer lists to merge, which measured
+    faster on an H100 at a shard's top-500 (PERF.md). 16 at the repository
+    corpus (4,096 rows, tile 2048, any B <= 64), 1 at 1,048,576 rows, 2 at a
+    shard of 262,144 rows at m 500 (tile 2048, B=1: 256 CTAs)."""
     tiles = n // tile_n
-    nqb = -(-b // split_query_block(b))
+    nqb = -(-b // split_query_block(b, m))
+    wide = m > SPLIT_NARROW_M
     p = 1
     while (p < SPLIT_MAX_SLICES and tile_n % (2 * p * SUB_TILE) == 0
-           and tiles * p * nqb < SPLIT_TARGET_CTAS):
+           and (tiles * 2 * p * nqb <= SPLIT_TARGET_CTAS if wide
+                else tiles * p * nqb < SPLIT_TARGET_CTAS)):
         p *= 2
     return p
 
@@ -252,9 +273,11 @@ def split_slices(n: int, tile_n: int, b: int) -> int:
 def loop_impl(kind: str, tile_n: int, m: int) -> str:
     """Which kernel a "loop" launch takes, by shape: "split" (the tensor-core
     kernel of ``csrc/scan_loop_mma.cu``) for bf16 and int8 x int8 rows at
-    m <= :data:`SPLIT_MAX_M` on tiles of whole 128-row sub-tiles; "template"
+    m <= :data:`SPLIT_MAX_M` on tiles of whole 128-row sub-tiles, which
+    covers every program's per-tile k and a shard's exact top-500; "template"
     (the CUDA-core kernel of ``csrc/scan_topk.cu``) for int8 rows widened
-    against a bf16 query, and for any other m or tile."""
+    against a bf16 query, and for m > 512 or a tile that is not a multiple
+    of 128 rows (a shard under 128 rows)."""
     if kind == "i8w" or m > SPLIT_MAX_M or tile_n % SUB_TILE:
         return "template"
     return "split"
@@ -333,7 +356,9 @@ class SplitScanKernel(ScanKernel):
     """The exact per-tile top-m on tensor cores (``csrc/scan_loop_mma.cu``):
     bf16 rows, or int8 rows against an int8 query (exact int32 sums), in
     query blocks of :func:`split_query_block`, each tile cut into
-    :func:`split_slices` row slices across CTAs. With more than one slice the
+    :func:`split_slices` row slices across CTAs; m <= :data:`SPLIT_MAX_M`,
+    and a shape it does not take raises (it never gives way to the
+    template: :class:`LoopKernel` routes). With more than one slice the
     wrapper allocates the scratch of the slices' lists ([tiles, B, slices,
     m] int64 keys) and the entry point launches the merge kernel after the
     scan; one launch of this wrapper counts as one."""
@@ -361,7 +386,7 @@ class SplitScanKernel(ScanKernel):
         lib = _kernels.load()
         n, d = index.shape
         b = queries.shape[0]
-        slices = split_slices(n, tile_n, b)
+        slices = split_slices(n, tile_n, b, m)
         dev = index.device
         vals = torch.empty((n // tile_n, b, m), dtype=torch.float32, device=dev)
         rows = torch.empty((n // tile_n, b, m), dtype=torch.int32, device=dev)
@@ -372,7 +397,7 @@ class SplitScanKernel(ScanKernel):
             err = getattr(lib, self.symbol)(
                 queries.data_ptr(), index.data_ptr(), mask.data_ptr(), vals.data_ptr(),
                 rows.data_ptr(), None if part is None else part.data_ptr(), b, n, d, tile_n, m,
-                split_query_block(b), slices, stream)
+                split_query_block(b, m), slices, stream)
         if err != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {err}")
         self.launches += 1
@@ -477,35 +502,48 @@ def scan_topk(index: torch.Tensor, queries: torch.Tensor, k: int,
 
 # -- one shard's exact top-k ---------------------------------------------------
 
-#: scan tiles a shard's rows may be cut into, largest first
-SHARD_TILES = (2048, 1024, 512, 256, 128, 64, 32)
+#: scan tile of a shard of at least this many rows, which is padded to a
+#: multiple of it
+SHARD_TILE = 2048
+#: narrowest tile the kernels take: a smaller shard is padded to a power of
+#: two of at least this many rows, and is one tile
+SHARD_MIN_TILE = 32
 
 
 def shard_scan_rows(rows: int) -> int:
-    """Rows a shard's scan tensors hold: its rows padded with masked rows up
-    to a multiple of 32, the narrowest tile the kernels take."""
-    return -(-max(rows, 1) // 32) * 32
+    """Rows a shard's scan tensors hold, its rows padded with masked rows: to
+    a multiple of :data:`SHARD_TILE` (at most 2,047 padding rows) from
+    2,048 rows, else to the next power of two of at least
+    :data:`SHARD_MIN_TILE`, so every tile is whole and as tall as the shard
+    allows (250,000 rows -> 251,904 in tiles of 2,048; 1,026 -> 2,048)."""
+    rows = max(rows, 1)
+    if rows >= SHARD_TILE:
+        return -(-rows // SHARD_TILE) * SHARD_TILE
+    return max(SHARD_MIN_TILE, 1 << (rows - 1).bit_length())
 
 
 def shard_geometry(rows: int, k: int) -> tuple[int, int, int]:
     """(scan rows, tile, per-tile k) of one shard's exact top-``k`` over
-    ``rows`` rows: the tile is the largest of :data:`SHARD_TILES` dividing
-    the padded rows, and the per-tile k is min(k, tile), which keeps the
-    union of the tiles' lists a superset of the exact top-k."""
+    ``rows`` rows (or over its padded count): tiles of :data:`SHARD_TILE`
+    rows, or the whole padded shard below that, and the per-tile k
+    min(k, tile), which keeps the union of the tiles' lists a superset of
+    the exact top-k. At k <= 512 a shard of more than 64 rows (padded to
+    whole 128-row sub-tiles) takes the split kernel (:func:`loop_impl`)."""
     n = shard_scan_rows(rows)
-    tile = next(t for t in SHARD_TILES if n % t == 0)
+    tile = min(n, SHARD_TILE)
     return n, tile, min(k, tile)
 
 
 def shard_topk(rows: torch.Tensor, queries: torch.Tensor, k: int, mask: torch.Tensor):
     """One shard's exact top-``k`` (vals [B, k] f32, local rows [B, k]
     int32), descending, ties to the lower row: the per-shard step of the
-    sharded programs (``parallel/sharded_hybrid.py``). ``rows`` holds a
-    multiple of 32 rows (:func:`shard_scan_rows`; the padding masked) and
-    ``k`` is at most its valid row count. On a CUDA tensor it runs
-    :func:`scan_topk` at :func:`shard_geometry`, so the exact per-tile
-    kernel of the row kind is launched (``LOOP_CC`` / ``LOOP_I8_CC`` at
-    m > 128); on a CPU tensor it runs the reference's own formulation, a
+    sharded programs (``parallel/sharded_hybrid.py``). ``rows`` holds
+    :func:`shard_scan_rows` rows (the padding masked) and ``k`` is at most
+    its valid row count. On a CUDA tensor it runs :func:`scan_topk` at
+    :func:`shard_geometry`, so the exact per-tile kernel of the row kind is
+    launched (``LOOP_SPLIT`` / ``LOOP_SPLIT_I8`` at k <= 512 on a shard of
+    more than 64 rows, the template below that or above 512); on a CPU
+    tensor it runs the reference's own formulation, a
     full f32 score vector and one stable top-k (:func:`topk_plain`). Slots
     past the valid rows hold NEG; their rows differ between the two, and
     callers read them as empty."""

@@ -95,7 +95,8 @@ def place_rows(t: torch.Tensor, devices: Sequence[torch.device],
                dtype: torch.dtype | None = None, scan: bool = True) -> tuple[torch.Tensor, ...]:
     """Cut ``t`` [rows, ...] into ``len(devices)`` equal row blocks, one on
     each device (in ``dtype``); a scan tensor's block is padded with zero
-    rows to :func:`shard_scan_rows` (the mask pads with 0, so those rows
+    rows to :func:`shard_scan_rows`, whole scan tiles (a multiple of 2,048
+    rows, or a power of two below that; the mask pads with 0, so those rows
     never leave their shard as real rows). A block already on its device in
     its dtype is a view."""
     n_s = t.shape[0] // len(devices)

@@ -7,9 +7,9 @@ query (dense vector + sparse terms) is copied to each. One program,
 :func:`sharded_search_legs`, over the N row blocks:
 
   per-shard dense scan + per-shard sketch scan, each shard's exact top-pool
-  per leg on its device (``ops/topk.py::shard_topk``: ``LOOP_CC`` /
-  ``LOOP_I8_CC`` on the card at pool > 128, the reference's full score vector
-  and one stable top-k on the CPU)
+  per leg on its device (``ops/topk.py::shard_topk``: the split kernels
+  ``LOOP_SPLIT`` / ``LOOP_SPLIT_I8`` on the card at pool <= 512, the
+  reference's full score vector and one stable top-k on the CPU)
   -> the [N, pool] candidates copied to the mesh's first device and merged
   into the exact global top-pool per leg (``lax.top_k``'s order)
   -> the union's terms (and, in mode 1, exact dense scores) gathered from

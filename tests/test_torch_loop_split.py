@@ -24,8 +24,9 @@ from cqs_tpu.ops.topk import topk_pallas
 from cqs_tpu_torch.ops.fusion import NEG, stable_topk
 from cqs_tpu_torch.ops.topk import (
     IMPLS, KERNELS, LOOP, LOOP_CC, LOOP_I8, LOOP_I8_CC, LOOP_I8W, LOOP_SPLIT, LOOP_SPLIT_I8,
-    SPLIT_MAX_M, SPLIT_MAX_QUERY_BLOCK, SPLIT_MAX_SLICES, SplitScanKernel, _scores, _tile_major,
-    _tile_scores, loop_impl, merge_tiles, scan_topk, scan_topk_plain_loop, split_query_block,
+    SPLIT_MAX_M, SPLIT_MAX_QUERY_BLOCK, SPLIT_MAX_SLICES, SPLIT_NARROW_M,
+    SPLIT_WIDE_M_QUERY_BLOCK, SplitScanKernel, _scores, _tile_major, _tile_scores, loop_impl,
+    merge_tiles, scan_topk, scan_topk_plain_loop, shard_geometry, split_query_block,
     split_slices,
 )
 from cqs_tpu_torch.search.engine import bf16_extraction
@@ -251,13 +252,17 @@ def test_split_twin_edge_tiles(seeded_rng, kind, case):
 # -- the emulated device steps against the loop twin --------------------------------
 
 @pytest.mark.parametrize("kind", ["i8", "bf16"])
-@pytest.mark.parametrize("m", [1, 2, 4, 7, 16, 33, 64, 128])
+@pytest.mark.parametrize("m", [1, 2, 4, 7, 16, 33, 64, 128, 129, 200, 256, 500, 512])
 def test_device_steps_match_loop_twin(seeded_rng, kind, m):
-    # every slice count the wrapper can pick at these tiles (1-16), B 1/3/65,
-    # 2% masked rows plus a fully masked tile and one with 3 valid rows
+    # every slice count the wrapper can pick at these tiles (1-16), B 1/3/65
+    # (B 1/3 at m > 128, where each list holds 256 or 512 keys and slices of
+    # 128-256 rows hold fewer rows than m), 2% masked rows plus a fully
+    # masked tile and one with 3 valid rows
     for tile in (128, 512, 2048):
+        if tile < m:
+            continue
         n = 3 * tile
-        for b in (1, 3, 65):
+        for b in (1, 3, 65) if m <= SPLIT_NARROW_M else (1, 3):
             index, q, mask = _inputs(seeded_rng, n, 16, b, kind)
             mask[tile:2 * tile] = 0
             mask[2 * tile:3 * tile - 3] = 0
@@ -283,6 +288,26 @@ def test_device_steps_all_equal_and_ascending(seeded_rng, kind):
     for slices in (1, 8):
         v, r = _emulate(scores.numpy(), tile, m, slices)
         assert torch.equal(r[0, 0], torch.arange(tile - 1, tile - 1 - m, -1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["i8", "bf16"])
+def test_wide_device_steps_all_equal_and_ascending(seeded_rng, kind):
+    # m 500 (lists of 512 keys): all-equal scores, where the lowest rows win
+    # through every slice merge, and rising scores, where every sub-tile
+    # enters every list; slices of 2048 down to 128 rows (fewer than m)
+    tile, m = 2048, 500
+    index, q, mask = _inputs(seeded_rng, 2 * tile, 16, 3, kind, masked=0.0)
+    ones = torch.ones_like(index)
+    ref = scan_topk_plain_loop(ones, q, mask, tile, m)
+    assert torch.equal(ref[1][1, 0], torch.arange(tile, tile + m, dtype=torch.int32))
+    for slices in (1, 4, 16):
+        _assert_equal(_emulated(ones, q, mask, tile, m, slices), ref)
+    ramp = torch.arange(2 * tile, dtype=torch.float32)[None, :].repeat(3, 1)
+    for slices in (1, 16):
+        v, r = _emulate(ramp.numpy(), tile, m, slices)
+        assert torch.equal(r[0, 0], torch.arange(tile - 1, tile - 1 - m, -1, dtype=torch.int32))
+        assert torch.equal(v[1, 2], torch.arange(2 * tile - 1, 2 * tile - 1 - m, -1,
+                                                 dtype=torch.float32))
 
 
 def test_key_order_is_the_reference_order():
@@ -315,6 +340,39 @@ def test_split_matches_pallas_interpret(seeded_rng, bf16):
                              tile_n=tile, per_tile_k=m, extraction="loop")
     ti, tq, tm = torch.from_numpy(index).to(dt), torch.from_numpy(q).to(dt), torch.from_numpy(mask)
     for got in (scan_topk_plain_loop_split(ti, tq, tm, tile, m, 128),
+                _emulated(ti, tq, tm, tile, m, 4)):
+        v, r = merge_tiles(*got, k)
+        np.testing.assert_allclose(v.numpy(), np.asarray(rv), rtol=1e-5)
+        np.testing.assert_array_equal(r.numpy(), np.asarray(rr))
+
+
+@pytest.mark.parametrize("kind", ["i8", "bf16"])
+def test_wide_split_matches_pallas_interpret(seeded_rng, kind):
+    # m 200 > 128 against the reference's _scan_kernel in interpret mode
+    # (200 rounds a tile); k = tiles * m exposes every per-tile slot. Tile 1
+    # keeps 40 valid rows < m, spread over its 128-row slices
+    n, d, b, tile, m = 1024, 32, 2, 512, 200
+    mask = np.ones(n, np.int32)
+    mask[512:1024] = 0
+    mask[512 + 13 * np.arange(40)] = 1
+    if kind == "i8":
+        index = seeded_rng.integers(-128, 128, size=(n, d)).astype(np.int8)
+        q = seeded_rng.integers(-128, 128, size=(b, d)).astype(np.int8)
+        ti, tq = torch.from_numpy(index), torch.from_numpy(q)
+        ji, jq = jnp.asarray(index), jnp.asarray(q)
+    else:
+        x = seeded_rng.normal(size=(n, d)).astype(np.float32)
+        index = x / np.linalg.norm(x, axis=1, keepdims=True)
+        y = seeded_rng.normal(size=(b, d)).astype(np.float32)
+        q = y / np.linalg.norm(y, axis=1, keepdims=True)
+        ti, tq = torch.from_numpy(index).bfloat16(), torch.from_numpy(q).bfloat16()
+        ji, jq = jnp.asarray(index, jnp.bfloat16), jnp.asarray(q, jnp.bfloat16)
+    tm = torch.from_numpy(mask)
+    k = (n // tile) * m
+    with pltpu.force_tpu_interpret_mode():
+        rv, rr = topk_pallas(ji, jq, k, jnp.asarray(mask), tile_n=tile, per_tile_k=m,
+                             extraction="loop")
+    for got in (scan_topk_plain_loop(ti, tq, tm, tile, m),
                 _emulated(ti, tq, tm, tile, m, 4)):
         v, r = merge_tiles(*got, k)
         np.testing.assert_allclose(v.numpy(), np.asarray(rv), rtol=1e-5)
@@ -356,9 +414,34 @@ def test_template_keeps_what_the_split_does_not_take():
     assert loop_impl("i8w", 2048, 4) == "template"
     assert loop_impl("bf16", 2048, SPLIT_MAX_M + 1) == "template"
     assert loop_impl("bf16", 96 * 2, 4) == "template"   # tile not a multiple of 128
-    assert LOOP.impl(2048, 129) is LOOP_CC
-    assert LOOP_I8.impl(2048, 200) is LOOP_I8_CC
+    # m 129-512 moved to the split kernel; the template keeps m > 512
+    assert LOOP.impl(2048, 513) is LOOP_CC
+    assert LOOP_I8.impl(2048, 513) is LOOP_I8_CC
+    for kind in ("bf16", "i8"):
+        assert loop_impl(kind, 2048, 500) == "split"
+        assert loop_impl(kind, 96, 64) == "template"     # a shard under 128 rows
     assert LOOP_I8W not in (LOOP_SPLIT, LOOP_SPLIT_I8)
+
+
+def test_shard_scans_take_the_split_kernel():
+    # a shard's exact top-500 (the sharded programs' pool) at 262,144 rows
+    # and at a shard that is not a power of two: whole 2,048-row tiles, the
+    # split kernel of either row kind, a query block of 8 and the grid
+    # filling the card
+    for rows in (262144, 250000):
+        n, tile, m = shard_geometry(rows, 500)
+        assert (tile, m) == (2048, 500) and n % tile == 0
+        assert LOOP.impl(tile, m) is LOOP_SPLIT and LOOP_I8.impl(tile, m) is LOOP_SPLIT_I8
+        assert split_query_block(1, m) == SPLIT_WIDE_M_QUERY_BLOCK == 8
+        slices = split_slices(n, tile, 1, m)
+        assert 132 <= (n // tile) * slices <= 264 and tile % (slices * SUB) == 0
+    # one wave of two CTAs an SM: 256 CTAs of 1,024 rows (m <= 128 would take 4)
+    assert split_slices(262144, 2048, 1, 500) == 2 and split_slices(262144, 2048, 1, 64) == 4
+    # a small shard still fills the card: one 2,048-row tile in 16 slices
+    assert split_slices(2048, 2048, 1, 500) == 16
+    # every batch takes 8-query blocks above m 128 (lists of 256-512 keys)
+    assert {split_query_block(b, m) for b in range(1, 300) for m in (129, 500, 512)} == {8}
+    assert split_query_block(64, 128) == 32
 
 
 @pytest.mark.parametrize("b", [1, 4, 8, 16, 32, 64])

@@ -266,12 +266,16 @@ def test_make_mesh_never_repeats_a_card():
 
 
 @pytest.mark.parametrize("rows,pool,want", [
-    (262144, 500, (262144, 2048, 500, "template")),   # the card's 1M rows / 4: LOOP_CC
+    (262144, 500, (262144, 2048, 500, "split")),      # the card's 1M rows / 4: LOOP_SPLIT
     (262144, 10, (262144, 2048, 10, "split")),
-    (1024, 500, (1024, 1024, 500, "template")),       # the repo corpus over 4 shards
+    (1024, 500, (1024, 1024, 500, "split")),          # a 4,096-row corpus over 4 shards
     (1024, 10, (1024, 1024, 10, "split")),
     (16, 500, (32, 32, 16, "template")),              # padded to 32 masked rows
     (16, 10, (32, 32, 10, "template")),
+    (250000, 500, (251904, 2048, 500, "split")),      # padded to whole 2,048-row tiles
+    (1250000, 500, (1251328, 2048, 500, "split")),    # docs/scale-10m.md: 10M over 8 chips
+    (100000, 500, (100352, 2048, 500, "split")),
+    (1026, 500, (2048, 2048, 500, "split")),          # the repository corpus over 4 shards
 ])
 def test_shard_geometry(rows, pool, want):
     """The scan rows, tile and per-tile k of a shard, and the route
@@ -279,6 +283,46 @@ def test_shard_geometry(rows, pool, want):
     n, tile, m = shard_geometry(rows, min(pool, rows))
     assert (n, tile, m) == want[:3]
     assert loop_impl("bf16", tile, m) == loop_impl("i8", tile, m) == want[3]
+
+
+def test_shard_tiles_are_whole_and_tall():
+    # a shard of 2,048 rows or more: tiles of 2,048, at most 2,047 padding
+    # rows; a smaller one: one tile, the next power of two of at least 32
+    # rows (from 128 rows a whole number of sub-tiles: the split kernel)
+    for rows in [*range(1, 4200, 7), 65535, 65536, 65537, 250000, 262143, 1250000]:
+        n, tile, m = shard_geometry(rows, min(500, rows))
+        assert n >= rows and n % tile == 0 and shard_geometry(n, m) == (n, tile, m)
+        if rows >= 2048:
+            assert tile == 2048 and n - rows < 2048
+        else:
+            assert tile == n and n == max(32, 1 << (rows - 1).bit_length())
+        assert (loop_impl("bf16", tile, m) == "split") == (rows > 64)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_shards_not_a_power_of_two(mode):
+    # 4 shards of 1,000 rows (padded to 1,024 each) against 1 shard of 4,000
+    # (padded to 4,096) and against the reference's 8-device mesh
+    n = 4000
+    rng = np.random.default_rng(99)
+    mat = rng.normal(size=(n, D)).astype(np.float32)
+    ids = rng.integers(1, V, size=(n, T)).astype(np.int32)
+    w = rng.random((n, T)).astype(np.float32)
+    names = [f"p{i}" for i in range(n)]
+    four = ShardedHybridIndex(names, mat, ids, w, V, _cpu_mesh(4), sketch_dim=S, q8=mode)
+    one = ShardedHybridIndex(names, mat, ids, w, V, _cpu_mesh(1), sketch_dim=S, q8=mode)
+    ref = JSharded(names, mat, ids, w, V, jmesh(), sketch_dim=S, q8=mode)
+    assert four.rows_per_shard == 1000 and four.matrix[0].shape[0] == 1024
+    assert one.matrix[0].shape[0] == 4096
+    qn = mat / np.linalg.norm(mat, axis=1, keepdims=True)
+    for qrow in (5, 2999):
+        for pool in (10, 500):
+            args = (qn[qrow], ids[qrow], w[qrow], 0.7, pool)
+            got, same = four.search_legs(*args), one.search_legs(*args)
+            for g, x in zip(got, same):
+                np.testing.assert_array_equal(g, x)
+            _assert_legs(got, ref.search_legs(*args), four.padded)
+            assert got[1][0] == qrow
 
 
 # -- the engine ------------------------------------------------------------------
