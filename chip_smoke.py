@@ -17,15 +17,17 @@ Phases, each fatal on error (non-zero exit, no result line):
    1/4/8/16/32/64/128, so each query block the daemon launches is held
    against the twin; 65,536 rows, m 32, B 64; 1,048,576 rows: B=1 m 4 and
    B=128 m 64; int8 also the screened scan, tile 16384 x 256, B=1, m 16),
-   timed in turns with the template at the same shape and, for bf16,
-   beside ``torch.matmul`` on the score product (not the same function);
+   timed in turns with the template at the same shape; every timing
+   beside one library call on the same inputs, the bare score product (not
+   the same function: no top-m): ``torch.matmul`` for bf16 and for int8
+   rows widened to bf16 before the timing, ``torch._int_mm`` for int8 x
+   int8 with the query padded to a multiple of 8 rows;
    both split kernels also at width 768 (EmbeddingGemma's), 4,096 and
    65,536 rows, B 1 and 64;
    int8 x int8 and int8-widened: 1,048,576 rows of width 256 and 1024,
-   tiles 2048 and 4096, B 1/8/128, m 4/16; the int8 x int8 grouped kernel
-   beside ``torch._int_mm`` on the same score product (not the same
-   function). The tensor-core kernels also where an MMA design breaks:
-   widths 16/24/48/256/1024/4096, not multiples of 16 or of the K-chunk; B
+   tiles 2048 and 4096, B 1/8/128, m 4/16. The tensor-core kernels also
+   where an MMA design breaks: widths 16/24/48/256/1024/4096, not
+   multiples of 16 or of the K-chunk; B
    3 and 65 and the batcher's rungs; tiles 128 (one row a group, one slice) to 16384;
    m up to 128, a fully masked tile; the split kernels also at m 129/256/500/512
    (lists of 256 and 512 keys, slices of fewer rows than m, the merge of 16
@@ -51,7 +53,19 @@ Phases, each fatal on error (non-zero exit, no result line):
    the corpus's docstrings (R@1/5/20 and p50 printed with the card's name
    and power limit); ``onboard``, ``health`` and ``scout`` asked of a
    ``BatchContext`` by four threads while the watch loop indexes an added
-   file (no error answer);
+   file (no error answer); then the CLI's last 22 commands on that corpus
+   (``rest_commands``): ``gc`` then a search, ``chat`` with two pipelines
+   from a pipe, ``label-queries --mock``, and ``summaries --max 256`` over
+   the port's LLM stub on 127.0.0.1, then ``index`` and the 10 e2e queries,
+   each three times on the card (``LOOP_SPLIT`` must launch) and once with
+   ``--device cpu`` (equal answers); the host commands (``init``, ``slot``,
+   ``model``, ``brief``, ``cache``, ``diff`` against the slot before the
+   summaries, ``audit-extraction``, ``audit-mode``, ``telemetry``,
+   ``completions``, ``convert``, ``hook``, ``context``, ``blame`` over a
+   one-commit git history, ``reconstruct``, ``improve-docs``, ``doctor``,
+   which must name the card, ``stale`` after an edit) three times each on
+   the card with the reference's exit codes; a line per command with its
+   median wall, ``LOOP_SPLIT`` launches and the card;
 5. scale: a daemon-sized synthetic index (65,536 rows, the bf16 batch
    program at B=64, which scans with the split loop kernel: wall and
    device-busy time), then a synthetic 1,048,576-row index at the hash
@@ -234,12 +248,6 @@ def cuda_ms(fn, iters: int) -> float:
 #: widening kernels multiply in)
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"i8": 1979e12, "bf16": 989e12, "i8w": 989e12}
-#: the one PyTorch call timed beside a kernel as ``library_ms``, where there
-#: is one; no single call computes a scan with a per-tile top-m
-LIBRARY_CALLS = {"scan_topk_grouped_i8": "torch._int_mm: the score product only, "
-                 "not the same function",
-                 "scan_topk_loop_split": "torch.matmul: the bf16 score product only, "
-                 "not the same function"}
 #: the library way of a shard's exact top-pool, one per row kind (two calls each)
 SHARD_LIBRARY = {"bf16": "torch.matmul + torch.topk",
                  "i8": "torch._int_mm (query padded to 8 rows) + torch.topk"}
@@ -260,6 +268,24 @@ KERNEL_CASES = {
     "scan_topk_loop_i8w": (SCALE_ROWS, 1024, 2048, 1, 4),
     "scan_topk_grouped_i8w": (SCALE_ROWS, 1024, 2048, 128, 4),
 }
+
+
+def library_call(torch, kind: str, index, q):
+    """The one PyTorch call timed beside a scan as ``library_ms``, and its
+    name: the bare score product on the scan's inputs (no single call
+    computes a per-tile top-m). bf16: ``torch.matmul``; int8 rows with a bf16
+    query: ``torch.matmul`` on the rows widened to bf16 once, before the
+    timing; int8 x int8: ``torch._int_mm``, the query padded with zero rows
+    to a multiple of 8 (its shape rule)."""
+    if kind == "bf16":
+        return (lambda: torch.matmul(q, index.t())), "torch.matmul"
+    if kind == "i8w":
+        wide = index.to(torch.bfloat16)
+        return (lambda: torch.matmul(q, wide.t())), "torch.matmul (rows widened to bf16)"
+    pad = -q.shape[0] % 8
+    qt = torch.cat([q, q.new_zeros(pad, q.shape[1])]).t().contiguous()   # [D, B + pad]
+    return (lambda: torch._int_mm(index, qt)), ("torch._int_mm" + (
+        f" (query padded to {q.shape[0] + pad} rows)" if pad else ""))
 
 
 def bound_ms(kind: str, n: int, d: int, b: int, tile: int, m: int) -> tuple[float, str]:
@@ -509,10 +535,9 @@ def phase_kernels(torch, dev, rng, seed, report):
     def timed(kernel, index, q, mask, tile, m, iters, rival=None):
         """The kernel's and its plain twin's times, and a rival kernel's on
         the same inputs, in turns (plain, kernel, rival, rival, kernel,
-        plain); the library call beside it: for GROUPED_I8 torch._int_mm on
-        the same score product where it takes the shape (B a multiple of
-        8), for the bf16 split loop kernel torch.matmul (neither is the same
-        function: no top-m)."""
+        plain); the library call beside it (:func:`library_call`, the bare
+        score product on the same inputs: not the same function, no top-m),
+        which holds for the rival too."""
         n, d = index.shape
         b = q.shape[0]
         label = f"n={n} d={d} tile={tile} b={b} m={m}"
@@ -524,15 +549,13 @@ def phase_kernels(torch, dev, rng, seed, report):
         rm = rival and [cuda_ms(lambda: rival(index, q, mask, tile, m), iters) for _ in (0, 1)]
         km2 = cuda_ms(lambda: kernel(index, q, mask, tile, m), iters)
         pm2 = cuda_ms(lambda: plain(index, q, mask, tile, m), iters)
-        lib_ms = None
-        if kernel is GROUPED_I8 and b % 8 == 0:
-            qt = q.t().contiguous()           # [D, B]: index @ qt is the scores' transpose
-            lib_ms = cuda_ms(lambda: torch._int_mm(index, qt), iters)
-        elif kernel is LOOP_SPLIT:
-            lib_ms = cuda_ms(lambda: torch.matmul(q, index.t()), iters)
+        lib, lib_name = library_call(torch, kernel.kind, index, q)
+        lib_ms = cuda_ms(lib, iters)
+        del lib
         timings.append({"kernel": kernel.name, "n": n, "d": d, "tile": tile, "b": b, "m": m,
                         "ms": (km1 + km2) / 2, "plain_ms": (pm1 + pm2) / 2,
-                        "library_ms": lib_ms, "rival": rival and rival.name,
+                        "library_ms": lib_ms, "library_call": lib_name,
+                        "rival": rival and rival.name,
                         "rival_ms": rival and sum(rm) / 2})
 
     cases = check_grouped_i8(torch, dev, seed)
@@ -675,11 +698,12 @@ def phase_kernels(torch, dev, rng, seed, report):
         del index, mask
         torch.cuda.empty_cache()
     print("kernels: main-path shapes ok; times (ms, CUDA events, kernel vs plain, and vs "
-          "the template in turns; library: torch._int_mm or torch.matmul, the score product "
-          "only, not the same function):")
+          "the template in turns; library: torch.matmul (bf16; int8 rows widened to bf16 "
+          "before the timing) or torch._int_mm (query padded to a multiple of 8 rows), the "
+          "score product only, not the same function):")
     kinds = {k.name: k.kind for k in IMPLS}
     for t in timings:
-        lib = f"  library {t['library_ms']:9.4f}" if t["library_ms"] is not None else ""
+        lib = f"  library {t['library_ms']:9.4f}"
         riv = f"  {t['rival']} {t['rival_ms']:9.4f}" if t["rival"] else ""
         bound = bound_ms(kinds[t["kernel"]], t["n"], t["d"], t["b"], t["tile"], t["m"])
         print(f"  {t['kernel']:26s} n={t['n']:8d} d={t['d']:5d} tile={t['tile']:5d} "
@@ -1069,6 +1093,7 @@ def phase_commands(torch, dev, report, smi: str):
                   f"(ci {out['host']['ci']['rc']}): "
                   + ", ".join(f"{k} {v['ms']:.0f} ms" for k, v in out["host"].items()))
         out["analysis_under_writes"] = analysis_under_writes(dev, proj)
+        out["rest"] = rest_commands(torch, dev, proj, tmp, smi)
         out["phase_s"] = time.perf_counter() - t_phase
         print(f"commands: the phase took {out['phase_s']:.1f} s; {smi}")
     finally:
@@ -1130,6 +1155,232 @@ def analysis_under_writes(dev, proj: Path, clients: int = 4) -> dict:
     print(f"commands: {sum(answers)} onboard/health/scout answers from {clients} client "
           f"threads while the watch loop indexed a file ({reconcile_s:.2f} s), no error")
     return {"answers": sum(answers), "reconcile_s": reconcile_s}
+
+
+#: the last commands' fixture: a page, a PDF, a file convert skips
+CONVERT_HTML = ("<html><body><h1>Scan kernels</h1><p>The split loop kernel keeps an "
+                "<b>exact</b> per-tile top-m.</p><pre>python3 chip_smoke.py</pre></body></html>")
+#: two pipelines piped to ``chat`` (the batch grammar: a search fanned out)
+CHAT_SESSION = ('search "reciprocal rank fusion of the lexical legs" | callers\n'
+                'search "parse python source into chunks" -k 5 | callees\n')
+GIT_ENV = {"GIT_AUTHOR_NAME": "Ada Example", "GIT_AUTHOR_EMAIL": "ada@example.com",
+           "GIT_AUTHOR_DATE": "2024-01-02T03:04:05+00:00",
+           "GIT_COMMITTER_NAME": "Ada Example", "GIT_COMMITTER_EMAIL": "ada@example.com",
+           "GIT_COMMITTER_DATE": "2024-01-02T03:04:05+00:00"}
+
+
+def tiny_pdf(text: bytes) -> bytes:
+    """A one-page PDF whose content stream shows ``text`` (a literal string)."""
+    content = b"BT /F1 12 Tf 72 720 Td (" + text + b") Tj ET"
+    return (b"%PDF-1.4\n1 0 obj\n<< /Type /Catalog /Pages 2 0 R >>\nendobj\n"
+            b"2 0 obj\n<< /Type /Pages /Kids [3 0 R] /Count 1 >>\nendobj\n"
+            b"3 0 obj\n<< /Type /Page /Parent 2 0 R /Contents 4 0 R "
+            b"/Resources << /Font << /F1 5 0 R >> >> >>\nendobj\n"
+            b"4 0 obj\n<< /Length " + str(len(content)).encode() + b" >>\nstream\n" + content
+            + b"\nendstream\nendobj\n"
+            b"5 0 obj\n<< /Type /Font /Subtype /Type1 /BaseFont /Helvetica >>\nendobj\n"
+            b"trailer\n<< /Root 1 0 R >>\n%%EOF\n")
+
+
+@contextlib.contextmanager
+def piped_stdin(text: str):
+    """``sys.stdin`` reads ``text`` from the read end of an OS pipe."""
+    r, w = os.pipe()
+    os.write(w, text.encode())
+    os.close(w)
+    old = sys.stdin
+    sys.stdin = os.fdopen(r)
+    try:
+        yield
+    finally:
+        sys.stdin.close()
+        sys.stdin = old
+
+
+@contextlib.contextmanager
+def llm_stub():
+    """The port's deterministic OpenAI-compatible stub on 127.0.0.1, named by
+    ``CQST_LLM_BASE_URL``; no Anthropic key is visible meanwhile (the
+    provider would prefer the local server, but nothing may leave the host)."""
+    from cqs_tpu_torch.llm import stub
+
+    srv, url = stub.start()
+    key = os.environ.pop("ANTHROPIC_API_KEY", None)
+    try:
+        with knobs({"CQST_LLM_BASE_URL": url, "NO_PROXY": "127.0.0.1,localhost",
+                    "no_proxy": "127.0.0.1,localhost"}):
+            yield url
+    finally:
+        if key is not None:
+            os.environ["ANTHROPIC_API_KEY"] = key
+        srv.shutdown()
+        srv.server_close()
+
+
+def rest_commands(torch, dev, proj: Path, tmp: Path, smi: str) -> dict:
+    """The CLI's last 22 commands on the repository corpus, on the card.
+    Search-based (``gc`` then a search, ``chat`` with two piped pipelines,
+    ``label-queries --mock``, ``summaries --max 256`` over the LLM stub then
+    ``index`` then the 10 e2e queries): three runs on the card, each must
+    launch ``LOOP_SPLIT``, and one with ``--device cpu``, whose answer must
+    equal the card's (the same rows in the same order, floats within 1e-5;
+    chat's text equal). Host commands: three runs on the card, each exit
+    code the reference's on this project (``doctor``: its device rows ok and
+    naming the card; its model row fails, as the reference's does, for a
+    neural preset without weights). Each line: median wall of the runs (host
+    clock), ``LOOP_SPLIT`` launches, the card."""
+    from cqs_tpu_torch.cli.main import main
+    from cqs_tpu_torch.ops.topk import LOOP_SPLIT
+
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "host"
+    git = shutil.which("git") is not None
+    if git:
+        for cmd in (["git", "-c", "init.defaultBranch=main", "init", "-q"],
+                    ["git", "add", "cqs_tpu/search/router.py"],
+                    ["git", "commit", "-q", "-m", "fixture"]):
+            subprocess.run(cmd, cwd=proj, env={**os.environ, **GIT_ENV}, check=True,
+                           capture_output=True, timeout=60)
+    docs = tmp / "docs"
+    docs.mkdir()
+    (docs / "kernels.html").write_text(CONVERT_HTML)
+    (docs / "scan.pdf").write_bytes(tiny_pdf(b"exact per-tile top-m on the card"))
+    (docs / "notes.txt").write_text("convert skips this\n")
+    (tmp / "queries.txt").write_text("\n".join(QUERIES) + "\n")
+    slots = proj / ".cqs-tpu" / "slots"
+    shutil.copytree(slots / "default", slots / "before")     # diff's other slot
+    files = {"docs": docs, "queries": tmp / "queries.txt"}
+    res: dict = {"search": {}, "host": {}}
+    t_rest = time.perf_counter()
+
+    def runs(argv: list[str], device: str, n: int, stdin: str | None = None):
+        """n runs of one command line: the last's exit code and output, the
+        median wall ms, the LOOP_SPLIT launches of the n runs."""
+        argv = [a.format(**files, out=tmp / f"{device}_rest.json",
+                         pool=tmp / f"{device}_pool.json") for a in argv]
+        argv += ["--path", str(proj), "--device", device]
+        before = LOOP_SPLIT.launches
+        got = []
+        for _ in range(n):
+            with piped_stdin(stdin) if stdin is not None else contextlib.nullcontext():
+                got.append(run_cli_text(main, argv))
+        return got[-1][0], got[-1][1], statistics.median(g[2] for g in got), \
+            LOOP_SPLIT.launches - before
+
+    def report(label: str, ms: float, launched: int, extra: str = "") -> None:
+        print(f"commands: {label}: median {ms:.1f} ms a CLI call (host clock), "
+              f"{LOOP_SPLIT.name} {launched} launches{extra}; {smi}")
+
+    def last_json(text: str):
+        lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+        return json.loads(lines[-1]) if lines else None
+
+    with knobs({"XDG_DATA_HOME": str(tmp / "xdg"), "CQST_TELEMETRY": "1"}), llm_stub():
+        # -- search-based: the card against --device cpu
+        def searched(label: str, steps: list[tuple[list[str], str | None]], compare) -> None:
+            answers, step_ms, launched = {}, [], 0
+            for device, n in ((str(dev), 3), ("cpu", 1)):
+                outs = []
+                for argv, stdin in steps:
+                    rc, text, ms, k = runs(argv, device, n, stdin)
+                    if rc != 0:
+                        fail(f"commands: {label}: {' '.join(argv)} with --device {device} "
+                             f"exited {rc}")
+                    outs.append(text)
+                    if device != "cpu":
+                        step_ms.append((argv[0], ms))
+                        launched += k
+                answers[device] = compare(outs, device)
+            if dev.type == "cuda" and launched == 0:
+                fail(f"commands: {label} did not launch {LOOP_SPLIT.name}")
+            diffs: list = []
+            where = same_answer(answers[str(dev)], answers["cpu"], diffs, label)
+            if where:
+                fail(f"commands: {label} on the card differs from --device cpu at {where}")
+            res["search"][label] = {"step_ms": step_ms, "launches": launched,
+                                    "max_abs_diff": max(diffs, default=0.0)}
+            ms = [m for _, m in step_ms]
+            walls = (f"median {ms[0]:.1f} ms a CLI call" if len(ms) == 1 else
+                     "medians " + ", ".join(f"{c} {m:.1f}" for c, m in step_ms) + " ms"
+                     if len(ms) < 4 else f"median {statistics.median(ms):.1f} ms a query "
+                     f"(its CLI calls' medians {min(ms):.1f}-{max(ms):.1f})")
+            print(f"commands: {label}: {walls} (host clock), {LOOP_SPLIT.name} {launched} "
+                  f"launches in 3 runs, card == cpu (floats within "
+                  f"{max(diffs, default=0.0):.2e}); {smi}")
+
+        searched("gc then search", [(["gc"], None),
+                                    (["search", "walk the call graph", "--json"], None)],
+                 lambda outs, d: last_json(outs[1]))
+        searched("chat (two pipelines from a pipe)", [(["chat"], CHAT_SESSION)],
+                 lambda outs, d: outs[0])
+        searched("label-queries --mock", [(["label-queries", "{queries}", "--out", "{out}",
+                                            "--pool-out", "{pool}", "--mock"], None)],
+                 lambda outs, d: [json.loads((tmp / f"{d}_rest.json").read_text()),
+                                  json.loads((tmp / f"{d}_pool.json").read_text()),
+                                  outs[0].splitlines()[0]])
+        # summaries enrich the store once (host work over the stub); the
+        # re-embedding index then runs on the card, and the queries on both
+        t0 = time.perf_counter()
+        rc, text, _, _ = runs(["summaries", "--max", "256"], str(dev), 1)
+        summaries_ms = (time.perf_counter() - t0) * 1e3
+        if rc != 0 or not text.startswith("enriched 256 chunks"):
+            fail(f"commands: summaries exited {rc}: {text[:200]}")
+        rc, text, index_ms, launched = runs(["index"], str(dev), 1)
+        if rc != 0:
+            fail(f"commands: index after summaries exited {rc}")
+        res["summaries"] = {"summaries_ms": summaries_ms, "index_ms": index_ms,
+                            "index_line": text.strip()}
+        report("summaries --max 256 (512 stub calls)", summaries_ms, 0)
+        report(f"index after summaries ({text.strip()})", index_ms, launched)
+        searched("search after summaries + index (the 10 e2e queries)",
+                 [(["search", q, "--json"], None) for q in QUERIES],
+                 lambda outs, d: [last_json(t) for t in outs])
+        # -- host commands: three runs each on the card, the reference's exit code
+        host = [("init", ["init"], 0), ("slot list", ["slot", "list"], 0),
+                ("model", ["model"], 0), ("brief", ["brief", "cqs_tpu/search/router.py"], 0),
+                ("cache stats", ["cache", "stats", "--per-model"], 0),
+                ("cache prune", ["cache", "prune", "3650"], 0),
+                ("cache compact", ["cache", "compact"], 0),
+                ("diff", ["diff", "before", "--json"], 0),
+                ("audit-extraction", ["audit-extraction"], 0),
+                ("audit-mode", ["audit-mode"], 0), ("telemetry", ["telemetry"], 0),
+                ("telemetry --mine", ["telemetry", "--mine"], 0),
+                ("completions", ["completions"], 0), ("completions zsh", ["completions", "zsh"], 0),
+                ("convert", ["convert", "{docs}/kernels.html", "{docs}/scan.pdf",
+                             "{docs}/notes.txt", "--out", "converted"], 0),
+                ("hook", ["hook"], 0 if git else 1), ("hook --uninstall", ["hook", "--uninstall"], 0),
+                ("context", ["context", "classify_query", "--lines", "2"], 0),
+                ("blame", ["blame", "classify_query"], 0 if git else 1),
+                ("reconstruct", ["reconstruct", "cqs_tpu/search/router.py"], 0),
+                ("improve-docs", ["improve-docs", "--out", "{out}"], 0),
+                ("doctor", ["doctor"], None), ("stale", ["stale"], 0)]
+        for label, argv, want in host:
+            if label == "stale":                      # one file edited since the index
+                with open(proj / "cqs_tpu" / "search" / "router.py", "a") as f:
+                    f.write("\n# edited after the index\n")
+            rc, text, ms, launched = runs(argv, str(dev), 3)
+            if label == "doctor":
+                rows = text.splitlines()
+                want = 1 if any(r.startswith("[FAIL]") for r in rows) else 0
+                if dev.type == "cuda" and not (rows[0].startswith("[ok ] torch device")
+                                               and name in rows[0]
+                                               and rows[1].startswith("[ok ] cuda available")):
+                    fail(f"commands: doctor does not report the card: {rows[:2]}")
+                if any(r.startswith("[FAIL]") and "model" not in r
+                       and (dev.type == "cuda" or "cuda" not in r) for r in rows):
+                    fail(f"commands: doctor failed a row: {rows}")
+            if rc != want:
+                fail(f"commands: {label} exited {rc}, not {want}: {text[:300]}")
+            if label == "stale" and "cqs_tpu/search/router.py" not in text:
+                fail(f"commands: stale did not list the edited file: {text[:300]}")
+            if label == "diff" and not last_json(text)["results"]:
+                fail("commands: diff against the slot before summaries found no change")
+            if label == "convert" and not (proj / "converted" / "scan.md").is_file():
+                fail("commands: convert wrote no scan.md")
+            res["host"][label] = {"rc": rc, "ms": ms, "launches": launched}
+            report(f"{label} (rc {rc})", ms, launched, " in 3 runs")
+    res["s"] = time.perf_counter() - t_rest
+    print(f"commands: the last 22 commands took {res['s']:.1f} s; {smi}")
+    return res
 
 
 # -- phase 5: a 1M-row index at the hash tier's widths --------------------------
@@ -3887,8 +4138,8 @@ def main() -> int:
                         "ms": t and (t["ms"] if own else t["rival_ms"]),
                         "plain_ms": t and t["plain_ms"],
                         "bound_ms": bound[0], "bound_by": bound[1],
-                        "library_ms": t and own and t["library_ms"] or None,
-                        "library_call": LIBRARY_CALLS.get(k.name)})
+                        "library_ms": t and t["library_ms"],
+                        "library_call": t and t["library_call"]})
     out_dir = REPO / "chiprun_out"
     if out_dir.is_dir():                     # full record, written when the output dir exists
         (out_dir / "chip_smoke.json").write_text(json.dumps(

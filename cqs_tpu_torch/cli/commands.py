@@ -5,7 +5,10 @@ Port of the part of ``cqs_tpu/cli/commands.py`` that the port serves: each
 ``CommandContext`` (store, models and engine on an explicit device). Text
 rendering is compact; ``--json`` emits the versioned envelope
 (``cli/envelope.py``). ``HANDLERS`` at the end is the table ``cli/main.py``
-dispatches through: a reference command that is not in it is not ported yet.
+dispatches through: every command of the reference's CLI. Where the reference
+names its own program (the pre-push hook's command, the shell completions,
+the chat banner, the "run ... index" hints), the port names its own, and
+``doctor``'s device rows read ``torch.cuda``.
 """
 
 from __future__ import annotations
@@ -1548,8 +1551,534 @@ def cmd_train_centroids(ctx: CommandContext, args) -> int:
     return 0
 
 
-#: command -> handler: what the port serves. ``cli/main.py`` exits 2 for a
-#: reference command that has no entry here.
+# ---------------------------------------------------------------------------
+# project set-up, slots, the caches and the models
+# ---------------------------------------------------------------------------
+
+def cmd_init(ctx: CommandContext, args) -> int:
+    ctx.index_dir.mkdir(parents=True, exist_ok=True)
+    _ = ctx.store          # creates slots/default/index.db + schema
+    _print(f"initialized {ctx.index_dir} (slot: {ctx.slot})")
+    return 0
+
+
+def cmd_slot(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.store import delete_slot, list_slots, promote_slot, resolve_slot
+
+    if args.action == "list":
+        active = resolve_slot(ctx.index_dir)
+        for name in list_slots(ctx.index_dir):
+            _print(f"{'*' if name == active else ' '} {name}")
+        return 0
+    if not args.name:
+        _print("slot name required")
+        return 2
+    if args.action == "promote":
+        promote_slot(ctx.index_dir, args.name)
+        _print(f"promoted slot {args.name!r}")
+    elif args.action == "delete":
+        delete_slot(ctx.index_dir, args.name)
+        _print(f"deleted slot {args.name!r}")
+    return 0
+
+
+def cmd_gc(ctx: CommandContext, args) -> int:
+    """Drop FTS rows orphaned by chunk deletes, vacuum, and rebuild the index
+    artifacts through the engine on the context's device."""
+    with ctx.store.write_txn() as db:
+        db.execute("DELETE FROM chunks_fts WHERE rowid NOT IN (SELECT rowid FROM chunks)")
+        db.execute("DELETE FROM chunks_fts_body WHERE rowid NOT IN (SELECT rowid FROM chunks)")
+    ctx.store.db.execute("VACUUM")
+    for f in ("dense.npz", "dense_base.npz", "splade.npz"):
+        p = ctx.slot_path / f
+        if p.exists():
+            p.unlink()
+    _ = ctx.engine       # rebuild artifacts
+    _print("gc done; index artifacts rebuilt")
+    return 0
+
+
+def cmd_model(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.models import all_presets
+
+    for p in all_presets():
+        _print(f"{p.name:22} {p.family:6} dim={p.dim:<6} seq={p.max_seq_len:<5} "
+               f"pooling={p.pooling}")
+    return 0
+
+
+def cmd_cache(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.store.cache import EmbeddingCache
+
+    cache = EmbeddingCache(ctx.slot_path / "embeddings_cache.db")
+    try:
+        if args.cache_cmd == "stats":
+            data = cache.stats(per_model=args.per_model)
+            qc = ctx.slot_path / "query_cache.db"
+            data["query_cache_size_bytes"] = qc.stat().st_size if qc.exists() else 0
+
+            def render(d):
+                mb = d["total_size_bytes"] / 1e6
+                _print(f"{d['total_entries']} entries / {mb:.1f} MB / "
+                       f"{d['unique_models']} models  ({d['cache_path']})")
+                for m in d.get("per_model", []):
+                    _print(f"  {m['model']}: {m['entries']} entries, "
+                           f"{m['size_bytes'] / 1e6:.1f} MB")
+
+            _emit_or_render(args, "cache", data, render)
+        elif args.cache_cmd == "clear":
+            n = cache.clear(model=args.model)
+            _emit_or_render(args, "cache", {"cleared": n},
+                            lambda d: _print(f"cleared {d['cleared']} entries"))
+        elif args.cache_cmd == "prune":
+            if (args.days is None) == (args.model is None):
+                print("cache prune takes exactly one of DAYS / --model", file=sys.stderr)
+                return 2
+            n = cache.prune(days=args.days, model=args.model)
+            _emit_or_render(args, "cache", {"pruned": n},
+                            lambda d: _print(f"pruned {d['pruned']} entries"))
+        elif args.cache_cmd == "compact":
+            freed = cache.compact()
+            _emit_or_render(args, "cache", {"freed_bytes": freed},
+                            lambda d: _print(f"compacted: {d['freed_bytes']} bytes freed"))
+    finally:
+        cache.close()
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# reading the index: a file's brief, a chunk in its file, blame, a whole file,
+# stale files, another slot's diff
+# ---------------------------------------------------------------------------
+
+def cmd_brief(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.analysis.context import brief_file
+
+    try:
+        data = brief_file(ctx.store, args.file)
+    except FileNotFoundError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+
+    def render(d):
+        _print(f"# {d['file']} — {d['total']} chunks")
+        for f in d["functions"]:
+            _print(f"  {f['line_start']:>5}  {f['chunk_type']:<9} {f['name']:<40} "
+                   f"callers={f['callers']} tests={f['tests']}")
+
+    return _emit_or_render(args, "brief", data, render)
+
+
+def cmd_context(ctx: CommandContext, args) -> int:
+    rows = ctx.store.find_by_name(args.name)
+    if not rows:
+        _print(f"(unknown chunk {args.name!r})")
+        return 1
+    row = rows[0]
+    src = ctx.root / row.origin
+    if not src.exists():
+        _print(row.body)
+        return 0
+    lines = src.read_text(errors="replace").splitlines()
+    lo = max(0, row.line_start - 1 - args.lines)
+    hi = min(len(lines), row.line_end + args.lines)
+    _print(f"== {row.origin}:{lo + 1}-{hi} (chunk at {row.line_start}-{row.line_end})")
+    for i in range(lo, hi):
+        marker = "|" if row.line_start - 1 <= i < row.line_end else " "
+        _print(f"{i + 1:5d}{marker} {lines[i]}")
+    return 0
+
+
+def cmd_blame(ctx: CommandContext, args) -> int:
+    import subprocess
+    from collections import Counter
+
+    rows = ctx.store.find_by_name(args.name)
+    if not rows:
+        _print(f"(unknown chunk {args.name!r})")
+        return 1
+    row = rows[0]
+    try:
+        out = subprocess.run(
+            ["git", "-C", str(ctx.root), "blame", "--line-porcelain",
+             f"-L{row.line_start},{row.line_end}", "--", row.origin],
+            capture_output=True, text=True, timeout=30)
+    except (subprocess.SubprocessError, OSError):
+        _print("(git blame unavailable)")
+        return 1
+    authors = Counter()
+    for line in out.stdout.splitlines():
+        if line.startswith("author "):
+            authors[line[7:]] += 1
+    _print(f"{row.origin}:{row.line_start}-{row.line_end}  {row.qualified_name}")
+    for author, n in authors.most_common():
+        _print(f"  {n:4d} lines  {author}")
+    if not authors:
+        _print("  (no blame data — uncommitted or not a git repo)")
+    return 0
+
+
+def cmd_reconstruct(ctx: CommandContext, args) -> int:
+    rows = list(ctx.store.iter_chunks("origin = ? AND chunk_type != 'window'",
+                                      (args.origin,)))
+    if not rows:
+        _print(f"(no chunks for {args.origin!r})")
+        return 1
+    rows.sort(key=lambda r: r.line_start)
+    last_end = 0
+    for r in rows:
+        if r.line_start > last_end + 1 and last_end:
+            _print(f"... (lines {last_end + 1}-{r.line_start - 1} not chunked)")
+        _print(f"# -- {r.qualified_name} [{r.chunk_type}] L{r.line_start}-{r.line_end}")
+        _print(r.body)
+        last_end = max(last_end, r.line_end)
+    return 0
+
+
+def cmd_stale(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.utils.hashing import fingerprint_file
+
+    stale = []
+    for origin, fp in ctx.store.registered_origins().items():
+        try:
+            st = os.stat(ctx.root / origin)
+            if not fp.matches_stat(st) and fingerprint_file(ctx.root / origin).digest != fp.digest:
+                stale.append(origin)
+        except OSError:
+            stale.append(origin)
+    if args.json:
+        emit(envelope("stale", stale), True)
+        return 0
+    for o in stale:
+        _print(o)
+    _print(f"({len(stale)} stale files)" if stale else "(index is fresh)")
+    return 0
+
+
+def cmd_diff(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.analysis.quality import semantic_diff
+    from cqs_tpu_torch.store import Store
+
+    other = Store.open(ctx.index_dir, slot=args.other_slot, readonly=True)
+    try:
+        data = semantic_diff(other, ctx.store)
+    finally:
+        other.close()
+
+    def render(d):
+        for f in d[:30]:
+            _print(f"{f['change']:15} {f['distance']:6.3f}  {f['origin']}  {f['name']}")
+        _print(f"({len(d)} changes)")
+
+    return _emit_or_render(args, "diff", data, render)
+
+
+# ---------------------------------------------------------------------------
+# audits, telemetry, diagnostics
+# ---------------------------------------------------------------------------
+
+def cmd_audit_extraction(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.analysis.extraction_audit import (audit_calls_python,
+                                                         audit_calls_rust, run_audit)
+
+    if args.calls:
+        reps = {"python": audit_calls_python(ctx.store, ctx.root),
+                "rust": audit_calls_rust(ctx.store, ctx.root)}
+        if args.save:
+            Path(args.save).write_text(json.dumps(reps, indent=1))
+        for lang, rep in reps.items():
+            if not rep["files"]:
+                continue
+            gt_key = "edges_ast" if "edges_ast" in rep else "edges_gt"
+            _print(f"{lang} call edges: files={rep['files']} "
+                   f"gt={rep[gt_key]} extracted={rep['edges_extracted']} "
+                   f"recall={rep['recall']:.1%} precision={rep['precision']:.1%}")
+            for w in rep["worst"][:8]:
+                _print(f"    {w['origin']}:{w['chunk']} missed={w['missed']} "
+                       f"phantom={w['phantom']}")
+        return 0
+    report = run_audit(ctx.store, ctx.root)
+    if args.save:
+        Path(args.save).write_text(json.dumps(report, indent=1))
+    for lang, s in report.items():
+        _print(f"{lang:12} files={s['files']:<5} decls={s['decls']:<6} "
+               f"recall={s['recall']:.1%}")
+        for w in s["worst"][:3]:
+            _print(f"    {w['count']:3d} missing in {w['origin']}: {w['missing'][:4]}")
+    return 0
+
+
+def cmd_audit_mode(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.config import REGISTRY
+
+    _print(f"# config: {ctx.root} (slot {ctx.slot})")
+    _print(f"model: {ctx.config.model}  path: {ctx.config.model_path}")
+    _print(f"splade: {ctx.config.splade_model}")
+    if ctx.config.alpha_overrides:
+        _print(f"alpha overrides: {ctx.config.alpha_overrides}")
+    _print("# effective knobs (name = value [source])")
+    for name, knob in sorted(REGISTRY.items()):
+        val = getattr(ctx.config.limits, name)
+        src = "default"
+        if os.environ.get(knob.env) is not None:
+            src = f"env {knob.env}"
+        if name in ctx.config.limits._overrides:
+            src = "config"
+        if val != knob.default or src != "default":
+            _print(f"{name} = {val} [{src}]")
+    return 0
+
+
+def cmd_telemetry(ctx: CommandContext, args) -> int:
+    from collections import Counter
+
+    p = ctx.index_dir / "telemetry.jsonl"
+    if not p.exists():
+        _print("(no telemetry; enable with CQST_TELEMETRY=1)")
+        return 0
+    counts = Counter()
+    zero_results = Counter()
+    total = 0
+    for line in p.read_text().splitlines():
+        try:
+            rec = json.loads(line)
+            counts[rec.get("command", "?")] += 1
+            total += 1
+            if rec.get("result_count") == 0 and rec.get("query_hash"):
+                zero_results[rec["query_hash"]] += 1
+        except json.JSONDecodeError:
+            continue
+    if args.mine:
+        # queries that repeatedly return nothing are recall gaps worth
+        # labeling; telemetry keeps only the query's hash
+        _print("# zero-result query hashes (freq desc) — recall-gap candidates")
+        for h, n in zero_results.most_common(50):
+            _print(f"{n:4d}  {h}")
+        return 0
+    _print(f"{total} events")
+    for cmd, n in counts.most_common():
+        _print(f"  {cmd:16} {n}")
+    return 0
+
+
+def cmd_doctor(ctx: CommandContext, args) -> int:
+    """The reference's diagnostics, with the device rows on ``torch.cuda``:
+    the device the context resolved (and its name) and whether CUDA is
+    available, which fails on a host without a card as the reference's
+    TPU row fails off a TPU."""
+    import torch
+
+    from cqs_tpu_torch.index import DenseIndex, SpladeIndex
+    from cqs_tpu_torch.models import get_preset
+
+    checks: list[tuple[str, bool, str]] = []
+    dev = ctx.device
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "host"
+    checks.append(("torch device", True, f"{dev} ({name})"))
+    cuda = torch.cuda.is_available()
+    checks.append(("cuda available", cuda,
+                   f"{torch.cuda.device_count()} device(s), torch {torch.__version__}, "
+                   f"CUDA {torch.version.cuda}" if cuda else f"no (torch {torch.__version__})"))
+    idx_exists = (ctx.slot_path / "index.db").exists()
+    checks.append(("index exists", idx_exists, str(ctx.slot_path)))
+    if idx_exists:
+        s = ctx.store.stats()
+        checks.append(("chunks embedded", s["embedded"] == s["chunks"],
+                       f"{s['embedded']}/{s['chunks']}"))
+        for f in ("dense.npz", "splade.npz"):
+            p = ctx.slot_path / f
+            ok = p.exists()
+            if ok:
+                try:
+                    (DenseIndex if "dense" in f else SpladeIndex).load(p, device=dev)
+                    detail = "valid"
+                except Exception as e:
+                    ok, detail = False, f"corrupt: {e}"
+            else:
+                detail = "missing (will build on first query)"
+            checks.append((f"artifact {f}", ok, detail))
+        meta = staleness_meta(ctx.store, ctx.root)
+        checks.append(("freshness", meta["stale_sampled"] == 0,
+                       f"{meta['stale_sampled']}/{meta['sampled']} sampled stale"))
+    preset = get_preset(ctx.config.model)
+    has_weights = ctx.config.model_path is not None
+    checks.append((f"model {ctx.config.model}", has_weights or preset.family == "hash",
+                   "weights present" if has_weights else
+                   ("lexical tier" if preset.family == "hash" else
+                    "no weights -> falls back to hash tier")))
+    ok_all = True
+    for label, ok, detail in checks:
+        ok_all &= ok
+        _print(f"[{'ok ' if ok else 'FAIL'}] {label:24} {detail}")
+    return 0 if ok_all else 1
+
+
+# ---------------------------------------------------------------------------
+# the REPL, shell completions, document conversion and the git hook; where
+# the reference names its own program, these name the port's
+# ---------------------------------------------------------------------------
+
+def cmd_chat(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.daemon.batch import parse_pipeline, run_pipeline
+    from cqs_tpu_torch.daemon.dispatch import BatchContext
+
+    bctx = BatchContext(ctx)
+    _print("cqs-tpu-torch chat — batch grammar (e.g.: search \"auth tokens\" | callers); "
+           "Ctrl+D to exit")
+    try:
+        while True:
+            try:
+                line = input("cqs> ").strip()
+            except EOFError:
+                break
+            if not line:
+                continue
+            if line in ("exit", "quit"):
+                break
+            resp = run_pipeline(bctx, parse_pipeline(line))
+            _print(json.dumps(resp.get("results", resp), indent=1)[:4000])
+    except KeyboardInterrupt:
+        pass
+    finally:
+        bctx.close()
+    return 0
+
+
+_COMPLETIONS_BASH = """_cqs_tpu_torch() {
+  local cur="${COMP_WORDS[COMP_CWORD]}"
+  COMPREPLY=( $(compgen -W "%s" -- "$cur") )
+}
+complete -F _cqs_tpu_torch cqs-tpu-torch
+"""
+
+
+def cmd_completions(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.cli.main import REFERENCE_COMMANDS
+
+    _print(_COMPLETIONS_BASH % " ".join(sorted(REFERENCE_COMMANDS)))
+    return 0
+
+
+def cmd_convert(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.convert import convert_file
+
+    done, skipped = 0, 0
+    for src in args.src:
+        try:
+            out = convert_file(src, ctx.root / args.out)
+        except Exception as e:
+            _print(f"skip {src} ({type(e).__name__}: {e})")
+            skipped += 1
+            continue
+        if out is None:
+            _print(f"skip {src} (unsupported or converter missing)")
+            skipped += 1
+        else:
+            _print(f"{src} -> {out}")
+            done += 1
+    _print(f"converted {done}, skipped {skipped}; run `python -m cqs_tpu_torch index` to "
+           "index them")
+    return 0 if done or not skipped else 1
+
+
+_HOOK_SCRIPT = """#!/bin/sh
+# cqs-tpu-torch pre-push CI gate (installed by `python -m cqs_tpu_torch hook`)
+exec python -m cqs_tpu_torch ci --base @{u} --threshold High
+"""
+
+
+def cmd_hook(ctx: CommandContext, args) -> int:
+    hook = ctx.root / ".git" / "hooks" / "pre-push"
+    if args.uninstall:
+        if hook.exists() and "cqs-tpu" in hook.read_text():
+            hook.unlink()
+            _print("hook removed")
+        return 0
+    if not hook.parent.is_dir():
+        _print("not a git repository")
+        return 1
+    hook.write_text(_HOOK_SCRIPT)
+    hook.chmod(0o755)
+    _print(f"installed pre-push CI gate at {hook}")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# LLM enrichment and labeling (an OpenAI-compatible server named by
+# CQST_LLM_BASE_URL, or the Anthropic Batches API); the searches that build
+# the candidate pools run on the context's device
+# ---------------------------------------------------------------------------
+
+def cmd_label_queries(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.eval.labeling import (
+        agreement_report, build_pools, judge_pools, pools_to_query_set,
+    )
+
+    p = Path(args.queries)
+    if p.suffix == ".json":
+        from cqs_tpu_torch.eval import load_query_set
+
+        queries = [q.query for q in load_query_set(p)]
+    else:
+        queries = [ln.strip() for ln in p.read_text().splitlines() if ln.strip()]
+    pools = build_pools(ctx.engine, queries, k=args.k)
+    if args.pool_out:
+        Path(args.pool_out).write_text(json.dumps(pools, indent=1))
+    if args.mock:
+        from cqs_tpu_torch.llm.provider import MockProvider
+
+        judges = {"mock_a": MockProvider(template="0"),
+                  "mock_b": MockProvider(template="0")}
+    else:
+        from cqs_tpu_torch.llm import provider_from_env
+
+        provider = provider_from_env()
+        if provider is None:
+            _print("no LLM provider configured; use --mock for plumbing tests")
+            return 1
+        # dual-judge: one provider judging twice, where two are not configured
+        judges = {"judge_a": provider, "judge_b": provider}
+    pools = judge_pools(pools, judges)
+    qs = pools_to_query_set(pools)
+    Path(args.out).write_text(json.dumps(qs, indent=1))
+    _print(json.dumps(agreement_report(pools)))
+    _print(f"wrote {qs['n']} consensus-labeled queries to {args.out}")
+    return 0
+
+
+def cmd_summaries(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.llm import llm_summary_pass, provider_from_env
+
+    provider = provider_from_env()
+    if provider is None:
+        _print("no LLM provider configured (set CQST_LLM_BASE_URL for an "
+               "OpenAI-compatible server or ANTHROPIC_API_KEY for Claude Batches)")
+        return 1
+    n = llm_summary_pass(ctx.store, provider, with_hyde=not args.no_hyde,
+                         max_chunks=args.max)
+    _print(f"enriched {n} chunks with {provider.name}; run `python -m cqs_tpu_torch index` "
+           "to re-embed")
+    return 0
+
+
+def cmd_improve_docs(ctx: CommandContext, args) -> int:
+    from cqs_tpu_torch.llm import provider_from_env
+    from cqs_tpu_torch.llm.doc_writer import improve_docs
+
+    provider = provider_from_env()
+    if provider is None:
+        _print("no LLM provider configured (CQST_LLM_BASE_URL or ANTHROPIC_API_KEY)")
+        return 1
+    patch, n = improve_docs(ctx.store, provider, ctx.root, max_chunks=args.max)
+    if not n:
+        _print("(nothing to document)")
+        return 0
+    Path(args.out).write_text(patch)
+    _print(f"drafted docs for {n} functions -> {args.out} (review, then `git apply`)")
+    return 0
+
+
+#: command -> handler: every command of the reference's CLI
 HANDLERS = {
     "index": cmd_index, "search": cmd_search,
     "callers": cmd_callers, "callees": cmd_callees, "impact": cmd_impact,
@@ -1570,4 +2099,12 @@ HANDLERS = {
     "train-data": cmd_train_data, "train": cmd_train, "train-distill": cmd_train_distill,
     "train-reranker": cmd_train_reranker, "export-model": cmd_export_model,
     "train-centroids": cmd_train_centroids,
+    "init": cmd_init, "slot": cmd_slot, "gc": cmd_gc, "model": cmd_model, "cache": cmd_cache,
+    "brief": cmd_brief, "context": cmd_context, "blame": cmd_blame,
+    "reconstruct": cmd_reconstruct, "stale": cmd_stale, "diff": cmd_diff,
+    "audit-extraction": cmd_audit_extraction, "audit-mode": cmd_audit_mode,
+    "telemetry": cmd_telemetry, "doctor": cmd_doctor, "chat": cmd_chat,
+    "completions": cmd_completions, "convert": cmd_convert, "hook": cmd_hook,
+    "label-queries": cmd_label_queries, "summaries": cmd_summaries,
+    "improve-docs": cmd_improve_docs,
 }

@@ -2,14 +2,13 @@
 ``python -m cqs_tpu_torch "query" [--json] [--device cuda|cpu]``.
 
 Port of ``cqs_tpu/cli/main.py``: the parser with the reference's flags for
-the commands the port serves, the bare-query default (a first argument that
+every one of its commands, the bare-query default (a first argument that
 is not a command is a search query), and the dispatch that forwards the
 read commands to a live daemon (``daemon/client.py::FORWARDABLE``) before
 it runs them in-process; a search with a flag the daemon's request does not
 carry (``LOCAL_SEARCH_FLAGS``) runs in-process, where the reference's CLI
 forwards it without the flag. The handlers are in ``cli/commands.py``
-(``HANDLERS``); a reference command without one exits 2 with "not yet
-ported". ``--device`` defaults to ``cuda`` and fails loudly where there is no
+(``HANDLERS``). ``--device`` defaults to ``cuda`` and fails loudly where there is no
 GPU; ``--device cpu`` runs the plain scans and trains on the CPU. A daemon
 answers on the device it was started on, whatever ``--device`` the
 forwarding CLI was given.
@@ -39,8 +38,7 @@ REFERENCE_COMMANDS = {
     "blame", "reconstruct", "stale", "neighbors", "refresh", "improve-docs",
     "brief", "cache",
 }
-#: what the port serves; ``REFERENCE_COMMANDS - PORTED_COMMANDS`` is the one
-#: list of what still exits 2
+#: what the port serves: every reference command
 PORTED_COMMANDS = set(HANDLERS)
 _VALUE_FLAGS = {"--slot", "--path", "--device"}
 #: ``search`` flags that ``daemon/client.py::translate_args`` leaves out of a
@@ -73,7 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="cqs-tpu-torch", parents=[common],
         description="Hybrid code search on PyTorch/CUDA: index, search, call-graph "
                     "reads, agent context and diff commands, the eval gate, a warm "
-                    "query daemon and the embedder's trainers.")
+                    "query daemon, the embedder's trainers and LLM enrichment.")
     _orig_sub = p.add_subparsers(dest="command")
 
     class _Sub:
@@ -85,6 +83,7 @@ def build_parser() -> argparse.ArgumentParser:
             return _orig_sub.add_parser(*a, **kw)
 
     sub = _Sub()
+    sub.add_parser("init", help="initialize a project index directory")
     sp = sub.add_parser("index", help="build or update the index")
     sp.add_argument("--force", action="store_true", help="reindex everything")
     sp.add_argument("--no-enrich", action="store_true",
@@ -142,6 +141,14 @@ def build_parser() -> argparse.ArgumentParser:
     sp = sub.add_parser("explain", help="why did this chunk rank for this query?")
     sp.add_argument("query")
     sp.add_argument("name")
+    sp = sub.add_parser("context", help="chunk plus surrounding file context")
+    sp.add_argument("name")
+    sp.add_argument("--lines", type=int, default=10)
+    sp = sub.add_parser("blame", help="git blame summary for a chunk")
+    sp.add_argument("name")
+    sp = sub.add_parser("reconstruct", help="reassemble a file from its indexed chunks")
+    sp.add_argument("origin")
+    sub.add_parser("stale", help="files whose index entries are out of date")
     sp = sub.add_parser("neighbors", help="chunks adjacent to the named one in its file")
     sp.add_argument("name")
     sp = sub.add_parser("read", help="print a chunk by name or id")
@@ -165,6 +172,9 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["positive", "negative", "neutral", "warning", "todo"])
     sp = sub.add_parser("notes", help="list notes")
     sp.add_argument("target", nargs="?")
+    sp = sub.add_parser("slot", help="manage index slots")
+    sp.add_argument("action", choices=["list", "promote", "delete"])
+    sp.add_argument("name", nargs="?")
     sp = sub.add_parser("gather", help="assemble reading context for a topic")
     sp.add_argument("query")
     sp.add_argument("--depth", type=int, default=2)
@@ -221,6 +231,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp = sub.add_parser("structural", help="structural anti-pattern scan")
     sp.add_argument("--pattern", help="only this pattern (e.g. error_swallow)")
     sub.add_parser("drift", help="doc-vs-code drift report")
+    sp = sub.add_parser("diff", help="semantic diff vs another indexed slot")
+    sp.add_argument("other_slot")
 
     sp = sub.add_parser("project", help="cross-project registry")
     sp.add_argument("action", choices=["add", "list", "remove"])
@@ -230,6 +242,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("action", choices=["add", "list", "remove"])
     sp.add_argument("name", nargs="?")
     sp.add_argument("root", nargs="?")
+    sub.add_parser("gc", help="drop orphaned rows and rebuild artifacts")
+    sub.add_parser("model", help="list embedding model presets")
 
     sub.add_parser("stats", help="index statistics")
     sp = sub.add_parser("status", help="index freshness status")
@@ -259,6 +273,13 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("queries", help="v3-format eval split JSON")
     sp.add_argument("--levers", help="comma list of knob[=off_value] overriding the built-in set")
     sp.add_argument("--save", help="write the ablation table JSON here")
+    sp = sub.add_parser("label-queries", help="build candidate pools and dual-judge label them")
+    sp.add_argument("queries", help="text file with one query per line, or a v3 JSON")
+    sp.add_argument("--out", default="labeled.v3.json")
+    sp.add_argument("--pool-out", help="also write the raw candidate pools here")
+    sp.add_argument("-k", type=int, default=10)
+    sp.add_argument("--mock", action="store_true",
+                    help="use mock judges (plumbing test; no LLM provider)")
     sp = sub.add_parser("embed-2d", help="compute 2-D projection coords for the cluster view")
     sp.add_argument("--method", default="auto", choices=["auto", "pca", "umap"])
     sp = sub.add_parser("train-data", help="mine (query, positive, negatives) pairs")
@@ -343,8 +364,44 @@ def build_parser() -> argparse.ArgumentParser:
 
     sp = sub.add_parser("train-centroids", help="train query-category centroids from labeled queries")
     sp.add_argument("queries", nargs="+", help="v3-format eval JSONs with categories")
+    sp = sub.add_parser("improve-docs", help="LLM-drafted doc comments as a staged patch")
+    sp.add_argument("--out", default="improve_docs.patch")
+    sp.add_argument("--max", type=int, default=50)
+    sp = sub.add_parser("summaries", help="LLM summary/HyDE enrichment pass")
+    sp.add_argument("--max", type=int, default=0, help="cap chunks (0 = all)")
+    sp.add_argument("--no-hyde", action="store_true")
+    sp = sub.add_parser("convert", help="convert HTML/PDF/CHM docs to markdown for indexing")
+    sp.add_argument("src", nargs="+")
+    sp.add_argument("--out", default="converted_docs")
     sp = sub.add_parser("export-model", help="export the active embedder config + params")
     sp.add_argument("--out", default="exported_model")
+    sub.add_parser("audit-mode", help="print effective config, knobs and env overrides")
+    sp = sub.add_parser("hook", help="install the git pre-push CI-gate hook")
+    sp.add_argument("--uninstall", action="store_true")
+    sp = sub.add_parser("audit-extraction", help="parser fidelity audit vs an independent scanner")
+    sp.add_argument("--calls", action="store_true",
+                    help="python call-edge precision/recall vs the ast module")
+    sp.add_argument("--save", help="write the report JSON here")
+    sp = sub.add_parser("brief", help="one-line-per-function summary for a file")
+    sp.add_argument("file", help="file path as stored in the index (e.g. src/lib.rs)")
+    sp = sub.add_parser("cache", help="manage the embeddings cache")
+    csub = sp.add_subparsers(dest="cache_cmd", required=True)
+    c = csub.add_parser("stats", help="entries, size, models", parents=[common])
+    c.add_argument("--per-model", action="store_true", help="per-model entry counts and bytes")
+    c = csub.add_parser("clear", help="delete all cached embeddings", parents=[common])
+    c.add_argument("--model", help="only this model fingerprint")
+    c = csub.add_parser("prune", help="drop entries older than DAYS, or one model's",
+                        parents=[common])
+    c.add_argument("days", nargs="?", type=float, default=None)
+    c.add_argument("--model", help="drop every entry for this model fingerprint")
+    csub.add_parser("compact", help="VACUUM the cache DB", parents=[common])
+    sub.add_parser("doctor", help="environment, device and index diagnostics")
+    sp = sub.add_parser("telemetry", help="render the telemetry log")
+    sp.add_argument("--mine", action="store_true",
+                    help="extract zero/low-result queries as eval candidates")
+    sub.add_parser("chat", help="interactive REPL over the batch grammar")
+    sp = sub.add_parser("completions", help="print shell completions")
+    sp.add_argument("shell", choices=["bash", "zsh"], nargs="?", default="bash")
     return p
 
 
@@ -361,10 +418,6 @@ def main(argv: list[str] | None = None) -> int:
             continue
         if a not in REFERENCE_COMMANDS:
             argv = argv[:i] + ["search"] + argv[i:]
-        elif a not in PORTED_COMMANDS:
-            print(f"cqs-tpu-torch: command {a!r} is not yet ported "
-                  f"(use python -m cqs_tpu {a})", file=sys.stderr)
-            return 2
         break
     args = build_parser().parse_args(argv)
     for k, v in (("json", False), ("slot", None), ("path", None), ("verbose", 0),

@@ -140,8 +140,17 @@ def test_cli_search_json_and_unported(tmp_project, capsys):
     env = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert env["command"] == "search" and 0 < len(env["results"]) <= 3
     assert env["_meta"]["device"] == "cpu"
-    assert main(["blame", "validate_token", "--path", str(tmp_project)]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    # every reference command is served: blame reads the port's index as the
+    # reference's CLI reads it (the project is not a git repository)
+    from cqs_tpu.cli.main import main as jmain
+
+    argv = ["blame", "validate_token", "--path", str(tmp_project)]
+    assert main(argv + ["--device", "cpu"]) == 0
+    port = capsys.readouterr()
+    assert jmain(argv) == 0
+    ref = capsys.readouterr()
+    assert port.out == ref.out and "not yet ported" not in port.err
+    assert port.out.splitlines()[0].startswith("src/auth.py:")
 
 
 def test_cuda_default_fails_loudly_without_gpu(tmp_project):

@@ -66,6 +66,10 @@ COPIES = (
     "daemon/batch.py", "daemon/mcp.py",
     # training data and teacher labels: host code over the store and the engine
     "train/__init__.py", "train/data.py", "train/distill.py",
+    # LLM enrichment over urllib, the labeling that calls engine.search, and
+    # the document converters (stdlib only)
+    "llm/__init__.py", "llm/provider.py", "llm/summaries.py", "llm/doc_writer.py",
+    "eval/labeling.py", "convert.py", "pdf.py", "chm.py",
 )
 #: Modules at a reference path that are ports, not copies: they run the
 #: device work on PyTorch, or (``native/__init__.py``, the one exception to
