@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``cqs_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--phases kernels,e2e,commands,scale,shard,serve,neural,graph,train]
+    python3 chip_smoke.py [--seed 0] [--phases kernels,e2e,commands,scale,shard,serve,neural,graph,train,host]
 
 Phases, each fatal on error (non-zero exit, no result line):
 
@@ -47,8 +47,15 @@ Phases, each fatal on error (non-zero exit, no result line):
    ``cli.main.main`` on a copy of the repository corpus (and a second
    project of ``scripts/`` and ``native/`` for ``--project``): each
    search-based command three times on the card, where it must launch the
-   split loop kernel, and once with ``--device cpu``, whose answer it must
-   equal (the same rows in the same order, every float within 1e-5); the
+   split loop kernel, and with ``--device cpu`` three ways: once on the
+   device programs (``host_mirror`` off, their plain scans), whose answer
+   it must equal (the same rows in the same order, every float within
+   1e-5), and once each through the host mirror, the CPU's serving route,
+   at ``host_sparse_csr`` 1 and 0, which must reach the mirror and whose
+   hits shared with the card's hold the same exact legs (dense within rtol
+   2e-4 / atol 1e-5, sparse within rtol 1e-4 / atol 1e-5; the mirror takes
+   each leg's global top-pool where the card takes per-tile candidates, so
+   the order and fused scores may differ); the
    host-only commands once on the card; ``eval`` over 64 queries made from
    the corpus's docstrings (R@1/5/20 and p50 printed with the card's name
    and power limit); ``onboard``, ``health`` and ``scout`` asked of a
@@ -57,8 +64,8 @@ Phases, each fatal on error (non-zero exit, no result line):
    (``rest_commands``): ``gc`` then a search, ``chat`` with two pipelines
    from a pipe, ``label-queries --mock``, and ``summaries --max 256`` over
    the port's LLM stub on 127.0.0.1, then ``index`` and the 10 e2e queries,
-   each three times on the card (``LOOP_SPLIT`` must launch) and once with
-   ``--device cpu`` (equal answers); the host commands (``init``, ``slot``,
+   each three times on the card (``LOOP_SPLIT`` must launch) and with
+   ``--device cpu`` the three ways above; the host commands (``init``, ``slot``,
    ``model``, ``brief``, ``cache``, ``diff`` against the slot before the
    summaries, ``audit-extraction``, ``audit-mode``, ``telemetry``,
    ``completions``, ``convert``, ``hook``, ``context``, ``blame`` over a
@@ -166,7 +173,22 @@ Phases, each fatal on error (non-zero exit, no result line):
    steps on the card against the CPU from the same parameters; each
    trainer's step time (forward, backward, optimizer), sequences/s,
    tokens/s, share of the bf16 peak, peak memory and profile (printed, not
-   checked).
+   checked);
+10. host: the sparse-only API on the card against the same calls on the
+   CPU (``SpladeIndex.search`` over 70,000 rows, ``sparse_scores_batch``
+   across its 65,536-row tile, ``build_doc_sketch_device`` against the host
+   build in bf16); the host mirror (``hybrid_query_host``) on this
+   machine's CPU against the card's program: at 2,048 rows against its
+   exact branch with every row a candidate, to the reference's pins (the
+   same valid rows and top 10, values within rtol 2e-4 / atol 1e-5), at
+   65,536 rows against the serving program, each shared row's exact legs
+   (and in csr mode the best exact-sparse row a candidate), at
+   ``host_sparse_csr`` 1 and 0; a CUDA engine's searches and batch make no
+   mirror call, a ``--device cpu`` CLI search makes one and launches no
+   kernel, a CPU batcher serves through it; then solo times on the CPU
+   (at 65,536 rows and on the repository corpus): the mirror at csr 1 and
+   0 against the device programs on the CPU, with the CPU's model. At
+   most 60 s.
 
 The kernels' launch counters are zeroed before phase 4 and read after
 phase 5, read just before and just after each run of phase 5b's path (the
@@ -175,7 +197,8 @@ else, its small shards ``LOOP_CC`` and ``LOOP_I8_CC``), zeroed again before
 phase 4b and read after it, and again around
 phase 6, phase 7, phase 8 and phase 9 (the split bf16 loop kernel must have
 launched from the commands' path, the socket path, the neural path, the
-graph path and the train path); a
+graph path and the train path), and around phase 10 (the split kernel
+must launch on its path); a
 branch wrapper that
 did not launch in phases 4-5 fails the run, and so
 does a split loop kernel that did not, a search of phase 4 whose solo or
@@ -993,6 +1016,133 @@ def same_text(got: str, want: str) -> bool:
     return True
 
 
+# -- the CPU's two routes: the device programs and the host mirror -------------
+
+@contextlib.contextmanager
+def cpu_device_route():
+    """Within the block every engine runs the device programs even on the
+    CPU (``host_mirror`` off, their plain scans): the route a ``--device
+    cpu`` search took before the host mirror, whose answers equal the
+    card's. The package never makes that choice: this wraps the engine's
+    constructor here."""
+    from cqs_tpu_torch.search.engine import SearchEngine
+
+    real = SearchEngine.__init__
+
+    def init(self, *a, **kw):
+        real(self, *a, **kw)
+        self.host_mirror = False
+
+    SearchEngine.__init__ = init
+    try:
+        yield
+    finally:
+        SearchEngine.__init__ = real
+
+
+@contextlib.contextmanager
+def mirror_calls():
+    """Within the block, count the calls of the host mirror
+    (``hybrid_query_host``, ``dense_query_host``) that the engine and the
+    batcher make, by wrapping the names those modules call."""
+    from cqs_tpu_torch.daemon import batcher
+    from cqs_tpu_torch.search import engine
+
+    counts = {"hybrid_query_host": 0, "dense_query_host": 0}
+    saved = []
+    for mod in (engine, batcher):
+        for name in counts:
+            if hasattr(mod, name):
+                real = getattr(mod, name)
+
+                def spy(*a, _real=real, _name=name, **kw):
+                    counts[_name] += 1
+                    return _real(*a, **kw)
+
+                saved.append((mod, name, real))
+                setattr(mod, name, spy)
+    try:
+        yield counts
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+#: (rtol, atol) of a leg's value between the card's program and the host
+#: mirror: the dense leg to the reference's mirror pin, the exact sparse leg
+#: to its CSR pin (``tests/test_host_path.py``)
+LEG_PINS = {"dense": (2e-4, 1e-5), "sparse": (1e-4, 1e-5)}
+
+
+def answer_hits(answer, out: dict | None = None, path: tuple = ()) -> dict:
+    """(where, id) -> signals of every hit (a dict with ``id`` and
+    ``signals``) in an answer, at any depth; ``where`` is the path of the
+    list that holds the hit (one query's hits), so the same chunk in the
+    answers of two queries is two hits. The first of a key wins."""
+    out = {} if out is None else out
+    if isinstance(answer, dict):
+        if isinstance(answer.get("id"), str) and isinstance(answer.get("signals"), dict):
+            out.setdefault((path[:-1], answer["id"]), answer["signals"])
+        for k, v in answer.items():
+            answer_hits(v, out, path + (k,))
+    elif isinstance(answer, list):
+        for i, v in enumerate(answer):
+            answer_hits(v, out, path + (i,))
+    return out
+
+
+def leg_pins(card, mirror, label: str) -> dict:
+    """Hold an answer the host mirror served on the CPU to the card's. The
+    mirror takes each leg's global top-pool (the reference's CPU program)
+    where the card's program takes per-tile candidates (its TPU program),
+    so the sparse leg's min-max range, the fused scores and the hits'
+    order may differ; a hit both answers hold has the same exact legs:
+    its dense leg within the reference's mirror pin, its sparse leg within
+    the CSR pin (``LEG_PINS``). Answers that both hold hits must share one.
+    Returns the counts and the largest differences."""
+    a, b = answer_hits(card), answer_hits(mirror)
+    shared = [i for i in a if i in b]
+    if a and b and not shared:
+        fail(f"{label}: the card's answer and the host mirror's share no hit")
+    worst = {"dense": 0.0, "sparse": 0.0}
+    for i in shared:
+        for leg, (rtol, atol) in LEG_PINS.items():
+            x, y = a[i].get(leg), b[i].get(leg)
+            if isinstance(x, (int, float)) and isinstance(y, (int, float)):
+                worst[leg] = max(worst[leg], abs(x - y))
+                if abs(x - y) > atol + rtol * abs(x):
+                    fail(f"{label}: hit {i[1]} at {i[0]}: {leg} leg {y} through the host "
+                         f"mirror, {x} "
+                         f"on the card (rtol {rtol}, atol {atol})")
+    return {"hits": len(a), "mirror_hits": len(b), "shared": len(shared),
+            "max_dense_diff": worst["dense"], "max_sparse_diff": worst["sparse"]}
+
+
+def mirror_answers(run, card, label: str) -> dict:
+    """``run()`` (one ``--device cpu`` call: exit code, answer, ms) through
+    the host mirror at ``host_sparse_csr`` 1 (the default: exact CSR
+    candidates) and 0 (the device program's sketch candidates), each answer
+    held to the card's by :func:`leg_pins`. Fails when a call fails or
+    never reaches the mirror."""
+    out = {}
+    for csr in ("1", "0"):
+        with knobs({"CQST_HOST_SPARSE_CSR": csr}), mirror_calls() as calls:
+            rc, got, ms = run()
+        if rc != 0 or got is None:
+            fail(f"{label} through the host mirror (host_sparse_csr {csr}) exited {rc}")
+        if not sum(calls.values()):
+            fail(f"{label} with --device cpu made no host-mirror call")
+        out[f"csr{csr}"] = {**leg_pins(card, got, f"{label} (host_sparse_csr {csr})"),
+                            "ms": ms, "mirror_calls": dict(calls)}
+    return out
+
+
+def mirror_line(m: dict) -> str:
+    return "; ".join(f"mirror {k}: {v['shared']}/{v['hits']} hits shared, legs within "
+                     f"{max(v['max_dense_diff'], v['max_sparse_diff']):.2e}"
+                     for k, v in m.items())
+
+
 def phase_commands(torch, dev, report, smi: str):
     """The ``search`` command's flags, the agent context, diff, registry and
     eval commands through ``cli.main.main`` on the repository corpus: each
@@ -1057,7 +1207,10 @@ def phase_commands(torch, dev, report, smi: str):
                     fail(f"commands: {label} on the card exited {rc}")
                 if dev.type == "cuda" and launched == 0:
                     fail(f"commands: {label} did not launch {LOOP_SPLIT.name}")
-                rc, cpu, cpu_ms = call(label, argv, "cpu", 1)
+                # --device cpu on the device programs (their plain scans):
+                # the card's answer exactly
+                with cpu_device_route():
+                    rc, cpu, cpu_ms = call(label, argv, "cpu", 1)
                 if rc != 0 or cpu is None:
                     fail(f"commands: {label} with --device cpu exited {rc}")
                 diffs: list = []
@@ -1066,13 +1219,18 @@ def phase_commands(torch, dev, report, smi: str):
                 else:
                     where = same_answer(card, cpu, diffs, label)
                 if where:
-                    fail(f"commands: {label} on the card differs from --device cpu at {where}")
+                    fail(f"commands: {label} on the card differs from --device cpu's device "
+                         f"programs at {where}")
+                # --device cpu as served: the host mirror, csr and sketch
+                mirror = mirror_answers(lambda: call(label, argv, "cpu", 1), card,
+                                        f"commands: {label}")
                 out["search"][label] = {"launches": launched, "runs": n, "ms": ms,
-                                        "cpu_ms": cpu_ms, "max_abs_diff": max(diffs, default=0.0)}
-                print(f"commands: {label}: card == cpu (floats within "
-                      f"{max(diffs, default=0.0):.2e}), {LOOP_SPLIT.name} {launched} "
-                      f"launches in {n} run(s), median {ms:.1f} ms a CLI call "
-                      f"(cpu {cpu_ms:.1f} ms)")
+                                        "cpu_ms": cpu_ms, "max_abs_diff": max(diffs, default=0.0),
+                                        "mirror": mirror}
+                print(f"commands: {label}: card == cpu device programs (floats within "
+                      f"{max(diffs, default=0.0):.2e}); {mirror_line(mirror)}; "
+                      f"{LOOP_SPLIT.name} {launched} launches in {n} run(s), median {ms:.1f} ms "
+                      f"a CLI call (cpu {cpu_ms:.1f} ms, mirror {mirror['csr1']['ms']:.1f} ms)")
                 if label == "eval":
                     rep = card["results"]
                     r, p = rep["recall"], rep["latency_ms"]
@@ -1278,8 +1436,10 @@ def rest_commands(torch, dev, proj: Path, tmp: Path, smi: str) -> dict:
         # -- search-based: the card against --device cpu
         def searched(label: str, steps: list[tuple[list[str], str | None]], compare) -> None:
             answers, step_ms, launched = {}, [], 0
-            for device, n in ((str(dev), 3), ("cpu", 1)):
-                outs = []
+
+            def answer(device: str, n: int):
+                nonlocal launched
+                outs, t0 = [], time.perf_counter()
                 for argv, stdin in steps:
                     rc, text, ms, k = runs(argv, device, n, stdin)
                     if rc != 0:
@@ -1289,23 +1449,30 @@ def rest_commands(torch, dev, proj: Path, tmp: Path, smi: str) -> dict:
                     if device != "cpu":
                         step_ms.append((argv[0], ms))
                         launched += k
-                answers[device] = compare(outs, device)
+                return 0, compare(outs, device), (time.perf_counter() - t0) * 1e3
+
+            answers[str(dev)] = answer(str(dev), 3)[1]
+            with cpu_device_route():       # the device programs' plain scans
+                answers["cpu"] = answer("cpu", 1)[1]
             if dev.type == "cuda" and launched == 0:
                 fail(f"commands: {label} did not launch {LOOP_SPLIT.name}")
             diffs: list = []
             where = same_answer(answers[str(dev)], answers["cpu"], diffs, label)
             if where:
-                fail(f"commands: {label} on the card differs from --device cpu at {where}")
+                fail(f"commands: {label} on the card differs from --device cpu's device "
+                     f"programs at {where}")
+            mirror = mirror_answers(lambda: answer("cpu", 1), answers[str(dev)],
+                                    f"commands: {label}")
             res["search"][label] = {"step_ms": step_ms, "launches": launched,
-                                    "max_abs_diff": max(diffs, default=0.0)}
+                                    "max_abs_diff": max(diffs, default=0.0), "mirror": mirror}
             ms = [m for _, m in step_ms]
             walls = (f"median {ms[0]:.1f} ms a CLI call" if len(ms) == 1 else
                      "medians " + ", ".join(f"{c} {m:.1f}" for c, m in step_ms) + " ms"
                      if len(ms) < 4 else f"median {statistics.median(ms):.1f} ms a query "
                      f"(its CLI calls' medians {min(ms):.1f}-{max(ms):.1f})")
             print(f"commands: {label}: {walls} (host clock), {LOOP_SPLIT.name} {launched} "
-                  f"launches in 3 runs, card == cpu (floats within "
-                  f"{max(diffs, default=0.0):.2e}); {smi}")
+                  f"launches in 3 runs, card == cpu device programs (floats within "
+                  f"{max(diffs, default=0.0):.2e}); {mirror_line(mirror)}; {smi}")
 
         searched("gc then search", [(["gc"], None),
                                     (["search", "walk the call graph", "--json"], None)],
@@ -1381,6 +1548,392 @@ def rest_commands(torch, dev, proj: Path, tmp: Path, smi: str) -> dict:
     res["s"] = time.perf_counter() - t_rest
     print(f"commands: the last 22 commands took {res['s']:.1f} s; {smi}")
     return res
+
+
+# -- phase 10: the sparse-only API and the CPU serving mirror --------------------
+
+#: rows of the host phase's sparse corpus: past ``sparse_scores_batch``'s
+#: 65,536-row tile, so its tiled path runs on the card
+HOST_SPARSE_ROWS = 70000
+#: rows of the synthetic index the host mirror runs at (a daemon-sized corpus)
+HOST_MIRROR_ROWS = 65536
+#: the host phase's time limit, seconds
+HOST_PHASE_S = 60.0
+
+
+def cpu_model() -> str:
+    """The host CPU as far as this machine tells it: ``/proc/cpuinfo``'s
+    ``model name`` (else ``lscpu``'s) where it is not "unknown", its vendor,
+    family, model and stepping numbers, the vector ISA torch dispatches to,
+    and the core count."""
+    import platform
+
+    import torch
+
+    fields: dict = {}
+    try:
+        for ln in Path("/proc/cpuinfo").read_text().splitlines():
+            k, _, v = ln.partition(":")
+            fields.setdefault(k.strip().lower(), v.strip())
+    except OSError:
+        pass
+    name = fields.get("model name", "")
+    if name.lower() in ("", "unknown") and shutil.which("lscpu"):
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+        name = next((ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                     if ln.lower().startswith("model name")), "")
+    parts = [name if name.lower() not in ("", "unknown") else "model name not reported"]
+    if fields.get("vendor_id"):
+        parts.append(f"{fields['vendor_id']} family {fields.get('cpu family', '?')} model "
+                     f"{fields.get('model', '?')} stepping {fields.get('stepping', '?')}")
+    parts.append(f"{platform.machine()} {torch.backends.cpu.get_cpu_capability()}")
+    return ", ".join(parts) + f", {os.cpu_count()} cores"
+
+
+def same_rows_or_ties(got_rows, got_vals, want_rows, want_vals, label: str,
+                      rtol: float, atol: float) -> int:
+    """Rows equal slot for slot, except where both sides' values there are a
+    near-tie (within ``atol + rtol * |v|``, a tie broken by the last bits of
+    a sum taken in another order); values within the same tolerance.
+    Returns the number of slots whose rows differ."""
+    import numpy as np
+
+    swapped = 0
+    for i in range(len(want_rows)):
+        a, b = float(got_vals[i]), float(want_vals[i])
+        if abs(a - b) > atol + rtol * abs(b):
+            fail(f"{label}: slot {i}: value {a} against {b}")
+        if got_rows[i] != want_rows[i]:
+            # the two rows must hold near-equal values in the reference run
+            j = np.flatnonzero(np.asarray(want_rows) == got_rows[i])
+            if not len(j) or abs(float(want_vals[j[0]]) - b) > atol + rtol * abs(b):
+                fail(f"{label}: slot {i}: row {got_rows[i]} against {want_rows[i]}")
+            swapped += 1
+    return swapped
+
+
+def host_sparse_api(torch, dev, rng, out: dict) -> None:
+    """The sparse-only API on the card against the same calls on the CPU:
+    ``SpladeIndex.search`` (rows equal but for near-ties, scores within rtol
+    1e-5 / atol 1e-6), ``sparse_scores_batch`` over 70,000 rows (two of its
+    65,536-row tiles; same tolerance), ``build_doc_sketch_device`` against
+    the host ``build_doc_sketch`` rounded to bf16 (one bf16 ulp)."""
+    import numpy as np
+
+    from cqs_tpu_torch.index import SpladeIndex, Stamp
+    from cqs_tpu_torch.ops import sparse as sp
+
+    n, t, v, s, b = HOST_SPARSE_ROWS, 64, 32768, 1024, 8
+    doc_ids = rng.integers(4, v, size=(n, t), dtype=np.int32)
+    doc_w = np.log1p(rng.integers(1, 6, size=(n, t))).astype(np.float32)
+    doc_w[:, 48:] = 0.0                               # zero-weight padding terms
+    ids = [f"r{i}" for i in range(n)]
+    stamp = Stamp(model_fingerprint="synthetic", dim=256, chunk_count=n, generation=0)
+    t0 = time.perf_counter()
+    card = SpladeIndex(ids, doc_ids, doc_w, v, stamp, device=dev, sketch_dim=s)
+    host = SpladeIndex(ids, doc_ids, doc_w, v, stamp, device="cpu", sketch_dim=s)
+    build_s = time.perf_counter() - t0
+    qrows = rng.choice(n, size=b, replace=False)
+    q_ids = np.ascontiguousarray(doc_ids[qrows, :16])
+    q_w = np.log1p(np.arange(16, 0, -1, dtype=np.float32))
+    swapped = 0
+    t0 = time.perf_counter()
+    for i in range(b):
+        cv, cr = card.search(q_ids[i], q_w, 10)
+        hv, hr = host.search(q_ids[i], q_w, 10)
+        if cr[0] != qrows[i]:
+            fail(f"host: SpladeIndex.search on the card did not find row {qrows[i]} first")
+        swapped += same_rows_or_ties(cr, cv, hr, hv, f"host: SpladeIndex.search query {i}",
+                                     1e-5, 1e-6)
+    search_ms = (time.perf_counter() - t0) * 1e3 / b
+    qv_card = torch.stack([sp.query_to_dense(torch.from_numpy(q_ids[i]).to(dev),
+                                             torch.from_numpy(q_w).to(dev), v)
+                           for i in range(b)])
+    got = sp.sparse_scores_batch(qv_card, card.doc_ids, card.doc_w, card.mask)
+    want = sp.sparse_scores_batch(qv_card.cpu(), host.doc_ids, host.doc_w, host.mask)
+    got = got.cpu().numpy()
+    want = want.numpy()
+    if got.shape != (b, card.capacity) or card.capacity <= 65536:
+        fail(f"host: sparse_scores_batch shape {got.shape} does not cross a 65,536-row tile")
+    valid = want > -1e30
+    err = float(np.abs(got[valid] - want[valid]).max())
+    if not np.array_equal(got > -1e30, valid) or not np.allclose(got[valid], want[valid],
+                                                               rtol=1e-5, atol=1e-6):
+        fail(f"host: sparse_scores_batch on the card differs from the CPU's (max {err:.3e})")
+    sk = sp.build_doc_sketch_device(card.doc_ids[:n], card.doc_w[:n], s).float().cpu()
+    ref = torch.from_numpy(sp.build_doc_sketch(doc_ids, doc_w, s)).to(torch.bfloat16).float()
+    sk_eq = float((sk == ref).float().mean())
+    if not torch.allclose(sk, ref, rtol=2.0 ** -8, atol=0):
+        fail("host: build_doc_sketch_device on the card is not within one bf16 ulp of the "
+             "host build")
+    out["sparse_api"] = {"rows": n, "capacity": card.capacity, "build_s": build_s,
+                         "search_ms": search_ms, "search_swapped_ties": swapped,
+                         "scores_batch_max_err": err, "sketch_equal_share": sk_eq}
+    print(f"host: sparse API on the card == the CPU: SpladeIndex.search over {n} rows "
+          f"({b} queries, {swapped} near-tie swaps, {search_ms:.2f} ms a query on the card), "
+          f"sparse_scores_batch over {card.capacity} rows (max |diff| {err:.2e}), "
+          f"build_doc_sketch_device == host build in bf16 for {sk_eq:.6f} of entries "
+          f"(the rest within one ulp)")
+
+
+def mirror_inputs(w, csr: bool) -> dict:
+    """``hybrid_query_host``'s index-side arguments from workload ``w``'s
+    indexes (their host views, copied off the card once)."""
+    mat_h, mask_h = w.dense.host_view()
+    if csr:
+        return dict(matrix=mat_h, doc_ids=None, doc_w=None, sketch=None, valid_mask=mask_h,
+                    csr=w.sparse.host_csr(), mat_bf16=w.dense.host_bf16())
+    ids_h, w_h, sk_h = w.sparse.host_view()
+    return dict(matrix=mat_h, doc_ids=ids_h, doc_w=w_h, sketch=sk_h, valid_mask=mask_h,
+                mat_bf16=w.dense.host_bf16())
+
+
+def exact_program(torch, w, alphas, pool: int):
+    """The card's hybrid program on its exact branch (materialised [B, N]
+    scores, each leg's stable top-pool; the branch the reference's program
+    takes on a CPU backend) for workload ``w``'s queries."""
+    from cqs_tpu_torch.search import program
+
+    qm = w.q_dense.to(torch.bfloat16)
+    qsk = program._query_sketch(w.q_ids_t, w.q_w_t, w.s).to(torch.bfloat16)
+    r, dc = program._exact_candidates(w.dense.matrix, w.sparse.sketch, w.dense.mask, qm, qsk,
+                                      pool)
+    return program._exact_rescore_fuse(w.packed, None, w.dense.mask, w.q_ids_t, w.q_w_t,
+                                       alphas, r.to(torch.int32), dc, pool, w.v)
+
+
+def host_mirror_program(torch, dev, seed: int, smi: str, cpu: str, out: dict) -> None:
+    """The host mirror on this machine's CPU at 65,536 rows against the
+    card's program. Against the card's program on its exact branch
+    (:func:`exact_program`, 2,048 rows, pool = every row) the mirror holds
+    the reference's pins, at ``host_sparse_csr`` 0 and 1: the same valid
+    rows, the same top 10, values within rtol 2e-4 / atol 1e-5. At 65,536
+    rows (32 tiles) the card's program takes per-tile candidates and the
+    mirror each leg's global top-pool, so rows both return are held to
+    their exact legs (``LEG_PINS``), the top-10 agreement is printed, and
+    in csr mode the best exact-sparse row (scored on the card by
+    ``sparse_scores``) must be among the mirror's candidates
+    (alpha 0.1). Then solo (B=1) times on the CPU: the mirror, csr and
+    sketch, against the device program on the CPU (its plain scans)."""
+    import numpy as np
+
+    from cqs_tpu_torch.ops import sparse as sp
+    from cqs_tpu_torch.search import program
+
+    NEG = program.NEG
+    for n, pool in ((2048, 2048), (HOST_MIRROR_ROWS, 500)):
+        w = scale_workload(torch, dev, np.random.default_rng(seed + 3), n, 8)
+        q_h = program.bf16_round(w.q)
+        q_ids, q_w = w.q_ids_t.cpu().numpy(), w.q_w_t.cpu().numpy()
+        for alpha in (0.8, 0.1):
+            alphas = torch.full((8,), alpha, device=dev)
+            if n == 2048:
+                card = [x.cpu().numpy() for x in exact_program(torch, w, alphas, pool)]
+            else:
+                card = [x.cpu().numpy() for x in program.hybrid_query_batch(
+                    w.dense.matrix, w.packed, None, w.sparse.sketch, w.dense.mask, w.q_dense,
+                    w.q_ids_t, w.q_w_t, alphas, pool, w.v, extraction=w.ext)]
+            for csr in (True, False):
+                label = f"host: mirror at {n} rows, pool {pool}, csr {int(csr)}, alpha {alpha}"
+                host = program.hybrid_query_host(
+                    q_dense=q_h, q_ids=q_ids, q_w=q_w, alphas=alphas.cpu().numpy(), pool=pool,
+                    vocab_size=w.v, **mirror_inputs(w, csr))
+                agree = []
+                for b in range(8):
+                    cv, hv = card[0][b] > -1e30, host[0][b] > -1e30
+                    if n == 2048:
+                        # one tile: the card's exact branch over every row
+                        if set(card[1][b][cv].tolist()) != set(host[1][b][hv].tolist()):
+                            fail(f"{label}: query {b}: valid row sets differ")
+                        same_rows_or_ties(host[1][b][:10], host[0][b][:10], card[1][b][:10],
+                                          card[0][b][:10], f"{label}: query {b}",
+                                          2e-4, 1e-5)
+                    at = {r: j for j, r in enumerate(card[1][b][cv].tolist())}
+                    shared = [(j, at[r]) for j, r in enumerate(host[1][b][hv].tolist())
+                              if r in at]
+                    if not shared:
+                        fail(f"{label}: query {b}: no row in both pools")
+                    for leg, k in (("dense", 2), ("sparse", 3)):
+                        rtol, atol = LEG_PINS[leg]
+                        x = np.asarray([host[k][b][j] for j, _ in shared])
+                        y = np.asarray([card[k][b][i] for _, i in shared])
+                        both = (x > NEG / 2) & (y > NEG / 2)
+                        if not np.array_equal(x > NEG / 2, y > NEG / 2) or not np.allclose(
+                                x[both], y[both], rtol=rtol, atol=atol):
+                            fail(f"{label}: query {b}: the {leg} leg of a shared row differs")
+                    agree.append(len(set(host[1][b][:10]) & set(card[1][b][:10])) / 10)
+                    if csr and alpha == 0.1:
+                        qv = sp.query_to_dense(w.q_ids_t[b], w.q_w_t[b], w.v)
+                        s_true = sp.sparse_scores(qv, w.packed[:, :w.t],
+                                                  w.packed[:, w.t:].contiguous().view(
+                                                      torch.float32), w.dense.mask)
+                        best = int(torch.argmax(s_true))
+                        if float(s_true[best]) > 0 and best not in set(host[1][b][hv].tolist()):
+                            fail(f"{label}: query {b}: the best exact-sparse row {best} is "
+                                 "not a candidate")
+                out.setdefault("mirror_vs_card", {})[f"{n}/{pool}/csr{int(csr)}/a{alpha}"] = \
+                    float(np.mean(agree))
+        print(f"host: mirror at {n} rows, pool {pool} == the card's program to the "
+              + ("reference's pins (exact branch: every row a candidate); " if n == 2048 else
+                 "legs of every shared row (per-tile candidates on the card); ")
+              + "top-10 agreement " + ", ".join(
+                  f"{k.split('/', 2)[2]} {v:.3f}" for k, v in out["mirror_vs_card"].items()
+                  if k.startswith(f"{n}/")))
+    # solo times on the CPU at 65,536 rows: the mirror (csr, sketch) and the
+    # device program on CPU tensors (the engine's B=1 call of each)
+    cpu_arrays = (w.dense.matrix.cpu(), w.packed.cpu(), None, w.sparse.sketch.cpu(),
+                  w.dense.mask.cpu())
+    times: dict = {"mirror csr 1": [], "mirror csr 0": [], "device program": []}
+    views = {True: mirror_inputs(w, True), False: mirror_inputs(w, False)}
+    for rnd in range(2):
+        order = list(times) if rnd == 0 else list(reversed(times))
+        for name in order:
+            for b in range(8):
+                t0 = time.perf_counter()
+                if name == "device program":
+                    program.hybrid_query(*cpu_arrays, w.q_dense[b].cpu(), w.q_ids_t[b].cpu(),
+                                         w.q_w_t[b].cpu(), 0.8, 500, w.v)
+                else:
+                    program.hybrid_query_host(
+                        q_dense=q_h[b:b + 1], q_ids=q_ids[b:b + 1], q_w=q_w[b:b + 1],
+                        alphas=np.asarray([0.8], np.float32), pool=500, vocab_size=w.v,
+                        **views[name == "mirror csr 1"])
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    out["cpu_solo_ms_65536"] = med
+    print(f"host: solo hybrid query on the CPU at {HOST_MIRROR_ROWS} rows (median of 16, host "
+          "clock): " + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items())
+          + f"; CPU: {cpu}; torch threads {torch.get_num_threads()}; {smi}")
+
+
+def host_engine_routes(torch, dev, smi: str, cpu: str, out: dict) -> None:
+    """The engine's routes on the repository corpus: a CUDA engine's solo
+    searches and a batcher burst make no host-mirror call and launch the
+    split kernel; a ``--device cpu`` CLI search makes at least one and
+    launches no kernel; a CPU batcher burst serves through the mirror.
+    Then solo ``engine.search`` on the CPU, in turns: the mirror at
+    ``host_sparse_csr`` 1 and 0 against the device programs on the CPU."""
+    from cqs_tpu_torch.cli.context import CommandContext
+    from cqs_tpu_torch.cli.main import main
+    from cqs_tpu_torch.daemon.batcher import QueryBatcher
+    from cqs_tpu_torch.ops.topk import IMPLS, LOOP_SPLIT
+
+    tmp = Path(tempfile.mkdtemp(prefix="cqs_host_"))
+    try:
+        proj = tmp / "corpus"
+        proj.mkdir()
+        copy_corpus(proj)
+        rc, env, ms = run_cli(main, ["index", "--path", str(proj), "--device", str(dev),
+                                     "--json"])
+        if rc != 0 or env is None:
+            fail(f"host: index exited {rc}")
+        out["index_s"] = ms / 1e3
+        with mirror_calls() as calls:
+            before = LOOP_SPLIT.launches
+            ctx = CommandContext.create(str(proj), device=dev)
+            try:
+                for q in QUERIES:
+                    if not ctx.engine.search(q).hits:
+                        fail(f"host: the card's search {q!r} has no hits")
+                batcher = QueryBatcher(ctx.engine)
+                try:
+                    batcher.pause()
+                    futs = [batcher.submit(q + " again") for q in QUERIES[:8]]
+                    batcher.resume()
+                    [f.result(timeout=120) for f in futs]
+                finally:
+                    batcher.stop()
+            finally:
+                ctx.close()
+            card_calls = dict(calls)
+            if dev.type == "cuda" and sum(card_calls.values()):
+                fail(f"host: a CUDA engine called the host mirror: {card_calls}")
+            if dev.type == "cuda" and LOOP_SPLIT.launches <= before:
+                fail(f"host: the card's searches did not launch {LOOP_SPLIT.name}")
+            launched = sum(k.launches for k in IMPLS)
+            rc, env, cli_ms = run_cli(main, [QUERIES[0], "--path", str(proj), "--device", "cpu",
+                                             "--json"])
+            if rc != 0 or env is None or not env["results"]:
+                fail(f"host: a --device cpu search exited {rc} or found nothing")
+            cli_calls = {k: v - card_calls[k] for k, v in calls.items()}
+            if cli_calls["hybrid_query_host"] < 1:
+                fail(f"host: a --device cpu search made no host-mirror call: {cli_calls}")
+            if sum(k.launches for k in IMPLS) != launched:
+                fail("host: a --device cpu search launched a kernel")
+            ctx = CommandContext.create(str(proj), device="cpu")
+            try:
+                batcher = QueryBatcher(ctx.engine)
+                try:
+                    batcher.pause()
+                    futs = [batcher.submit(q) for q in QUERIES[:8]]
+                    batcher.resume()
+                    [f.result(timeout=120) for f in futs]
+                finally:
+                    batcher.stop()
+            finally:
+                ctx.close()
+            batch_calls = calls["hybrid_query_host"] - card_calls["hybrid_query_host"] \
+                - cli_calls["hybrid_query_host"]
+            if batch_calls < 1 or batcher.stats["fused"] != 8:
+                fail(f"host: the CPU batcher did not serve through the mirror "
+                     f"({batch_calls} calls, {batcher.stats})")
+        out["calls"] = {"card": card_calls, "cpu_cli": cli_calls, "cpu_batcher": batch_calls}
+        print(f"host: a CUDA engine's {len(QUERIES)} searches and 8-query burst made "
+              f"{sum(card_calls.values())} host-mirror calls; a --device cpu CLI search made "
+              f"{cli_calls['hybrid_query_host']} and launched no kernel ({cli_ms:.1f} ms); the "
+              f"CPU batcher's burst {batch_calls} call(s)")
+        # solo engine.search on the CPU, in turns, each engine fresh (its
+        # result cache empty) after one pass that fills the query-embedding cache
+        ctx = CommandContext.create(str(proj), device="cpu")
+        try:
+            for q in QUERIES:
+                ctx.engine.search(q)
+        finally:
+            ctx.close()
+        routes = {"mirror csr 1": ("1", True), "mirror csr 0": ("0", True),
+                  "device program": ("1", False)}
+        ms = {k: [] for k in routes}
+        dev_ms = {k: [] for k in routes}
+        for rnd in range(2):
+            for name in (list(routes) if rnd == 0 else list(reversed(routes))):
+                csr, mirror = routes[name]
+                with knobs({"CQST_HOST_SPARSE_CSR": csr}):
+                    ctx = CommandContext.create(str(proj), device="cpu")
+                    try:
+                        ctx.engine.host_mirror = mirror
+                        for q in QUERIES:
+                            res = ctx.engine.search(q)
+                            ms[name].append(res.elapsed_ms)
+                            dev_ms[name].append(res.meta["device_ms"])
+                    finally:
+                        ctx.close()
+        med = {k: (statistics.median(ms[k]), statistics.median(dev_ms[k])) for k in routes}
+        out["cpu_engine_search_ms"] = med
+        print(f"host: solo engine.search on the CPU, repository corpus (median of "
+              f"{2 * len(QUERIES)}, host clock; program part in brackets): "
+              + ", ".join(f"{k} {a:.2f} ms ({b:.2f})" for k, (a, b) in med.items())
+              + f"; CPU: {cpu}; torch threads {torch.get_num_threads()}; {smi}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_host(torch, dev, seed: int, report, smi: str) -> None:
+    """The sparse-only API on the card against the CPU, the host mirror on
+    this machine's CPU against the card's program, and the engine's routes
+    (a CUDA engine never calls the mirror; a CPU one serves through it),
+    with the CPU's times. At most ``HOST_PHASE_S`` seconds."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    out: dict = {"cpu": cpu_model()}
+    host_sparse_api(torch, dev, np.random.default_rng(seed + 2), out)
+    host_mirror_program(torch, dev, seed, smi, out["cpu"], out)
+    host_engine_routes(torch, dev, smi, out["cpu"], out)
+    out["phase_s"] = time.perf_counter() - t0
+    report["host"] = out
+    print(f"host: the phase took {out['phase_s']:.1f} s of its {HOST_PHASE_S:.0f}; {smi}")
+    if out["phase_s"] > HOST_PHASE_S:
+        fail(f"the host phase took {out['phase_s']:.1f} s, over its {HOST_PHASE_S:.0f} s")
 
 
 # -- phase 5: a 1M-row index at the hash tier's widths --------------------------
@@ -3976,7 +4529,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
-                    default="kernels,e2e,commands,scale,shard,serve,neural,graph,train")
+                    default="kernels,e2e,commands,scale,shard,serve,neural,graph,train,host")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not (REPO / "cqs_tpu_torch" / "__init__.py").is_file():
@@ -4102,6 +4655,18 @@ def main() -> int:
         print(f"launches on the train path: {train_launches}")
         if LOOP_SPLIT.launches == 0:
             fail(f"kernel {LOOP_SPLIT.name} was not launched on the train path")
+    # the sparse-only API and the host mirror against the card: zeroed just
+    # before, read just after
+    for k in IMPLS:
+        k.launches = 0
+    if "host" in phases:
+        phase_host(torch, dev, args.seed, report, smi)
+    torch.cuda.synchronize()
+    host_launches = {k.name: k.launches for k in IMPLS}
+    if "host" in phases:
+        print(f"launches on the host phase's path: {host_launches}")
+        if LOOP_SPLIT.launches == 0:
+            fail(f"kernel {LOOP_SPLIT.name} was not launched on the host phase's path")
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")]
     if loaded:
         fail(f"JAX modules were imported: {loaded[:5]}")
@@ -4123,7 +4688,8 @@ def main() -> int:
                         "launches": (launches[k.name] + shard_launches[k.name]
                                      + small_launches[k.name] + commands_launches[k.name]
                                      + serve_launches[k.name] + neural_launches[k.name]
-                                     + graph_launches[k.name] + train_launches[k.name]),
+                                     + graph_launches[k.name] + train_launches[k.name]
+                                     + host_launches[k.name]),
                         "main_path_launches": launches[k.name],
                         "shard_path_launches": shard_launches[k.name],
                         "small_shard_path_launches": small_launches[k.name],
@@ -4132,6 +4698,7 @@ def main() -> int:
                         "neural_path_launches": neural_launches[k.name],
                         "graph_path_launches": graph_launches[k.name],
                         "train_path_launches": train_launches[k.name],
+                        "host_path_launches": host_launches[k.name],
                         "kernel_phase_launches": kernel_phase[k.name],
                         "max_abs_err": report.get("errs", {}).get(k.name),
                         "shape": dict(zip(("n", "d", "tile", "b", "m"), case)),

@@ -5,7 +5,9 @@ the socket server's client threads. Concurrent default searches (no filters) col
 ``daemon_batch_window_ms`` or ``daemon_max_batch`` entries, embed as one
 batch and run ONE device program on the engine's device
 (``hybrid_query_batch``, or the engine's int8 program when ``scan_q8``
-selects one, as on the solo path); an engine serving a sharded index
+selects one, as on the solo path; on a ``host_mirror`` engine, the CPU's,
+one call of its host mirror ``hybrid_query_host``, unpadded, as the
+reference batches on a CPU backend); an engine serving a sharded index
 (``mesh_shards``) answers each query solo, through the sharded program;
 hydration
 and scoring fan back out per query through the engine's shared host stage,
@@ -32,7 +34,9 @@ from cqs_tpu_torch.search.router import (
 from cqs_tpu_torch.search.scoring import Candidate, ScoringContext, score_candidate
 from cqs_tpu_torch.utils.trace import get_tracer
 from cqs_tpu_torch.search.engine import SearchEngine, SearchHit, SearchResult, bf16_extraction
-from cqs_tpu_torch.search.program import hybrid_query_batch, trim_query_terms
+from cqs_tpu_torch.search.program import (
+    bf16_round, hybrid_query_batch, hybrid_query_host, trim_query_terms,
+)
 
 log = get_tracer("batcher")
 
@@ -286,6 +290,23 @@ class QueryBatcher:
         alphas = np.asarray([a for _, _, a in batchable], dtype=np.float32)
         pool = min(max(max(p.limit for p, _, _ in batchable) * eng.lim.candidate_pool_mult,
                        eng.lim.candidate_pool_floor), index.capacity)
+        # every batched query is a default (code-only) search, as on the
+        # solo path
+        code = eng._code_mask(index)
+        if eng.host_mirror:
+            # the host mirror (batcher.py:207-230): numpy recompiles nothing
+            # per batch size, so the batch is not padded
+            fm = None
+            if code is not None:
+                fm = np.zeros(index.capacity, np.int32)
+                fm[: len(code)] = code
+            fused, rows, d_leg, s_leg = hybrid_query_host(
+                q_dense=bf16_round(q_dense), q_ids=np.asarray(q_ids_b),
+                q_w=np.asarray(q_w_b, np.float32), alphas=alphas, pool=pool,
+                vocab_size=eng.sparse.vocab_size,
+                sketch_candidates=eng._sketch_candidates(None),
+                **eng._host_hybrid_inputs(index, fm))
+            return q_dense, legs, fused, rows, d_leg, s_leg
 
         # pad the batch dim to a rung so the number of distinct batch shapes
         # stays small (padding rows repeat the first query)
@@ -295,9 +316,6 @@ class QueryBatcher:
             q_ids_b = np.concatenate([q_ids_b, np.repeat(q_ids_b[:1], Bp - B, 0)])
             q_w_b = np.concatenate([q_w_b, np.repeat(q_w_b[:1], Bp - B, 0)])
             alphas = np.concatenate([alphas, np.repeat(alphas[:1], Bp - B)])
-        # every batched query is a default (code-only) search, as on the
-        # solo path
-        code = eng._code_mask(index)
         q_ids_t, q_w_t = trim_query_terms(q_ids_b, q_w_b)
         valid = index.mask if code is None else eng._device_code_valid(index, code)
         dev = eng.device

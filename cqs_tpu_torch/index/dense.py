@@ -9,7 +9,10 @@ on tensor identity) never sees a half-applied update. The npz, stamp and
 checksum formats are the reference's, so either package loads the other's
 files. ``dense_i8`` and the B=1 screen (int8 or projection,
 ``_build_screen``/``project_query``) are derived on the device and never
-persisted.
+persisted. ``host_view``, ``host_bf16`` and ``host_i8`` are the numpy views
+of the CPU serving mirror (``search/program.py::hybrid_query_host``),
+cached on the identity of the tensors they mirror, so a mutation (which
+rebinds them) drops them.
 """
 
 from __future__ import annotations
@@ -62,6 +65,9 @@ class DenseIndex:
         self._ids_digest: str | None = None
         self._row_map: dict[str, int] | None = None
         self._i8_cache: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._host_view: tuple | None = None
+        self._host_bf16: tuple[torch.Tensor, np.ndarray] | None = None
+        self._host_i8: tuple[torch.Tensor, np.ndarray] | None = None
         self._upload()
 
     # -- device state ------------------------------------------------------
@@ -176,6 +182,48 @@ class DenseIndex:
     def _invalidate_id_caches(self) -> None:
         self._ids_digest = None
         self._row_map = None
+
+    @property
+    def max_k(self) -> int:
+        """Largest k a search can return: the live row count, at least 1."""
+        return max(1, self.count)
+
+    def host_view(self) -> tuple[np.ndarray, np.ndarray]:
+        """Cached (matrix f32, mask) numpy views for the CPU serving mirror.
+        The f32 matrix is the exact widening of the stored rows, so host and
+        device scores agree to bf16 product precision. Dropped when the
+        matrix or the mask is rebound."""
+        c = self._host_view
+        if c is None or c[0] is not self.matrix or c[1] is not self.mask:
+            c = (self.matrix, self.mask, self.matrix.to(torch.float32).cpu().numpy(),
+                 self.mask.cpu().numpy())
+            self._host_view = c
+        return c[2], c[3]
+
+    def host_bf16(self) -> np.ndarray | None:
+        """Cached [capacity, D] uint16 view of the bf16 rows for the native
+        host scan (``native/hostscan.cpp``): half the bytes of the f32
+        widening on the memory-bound CPU path. None when the index stores
+        f32 (the kernel reads bf16 bit patterns)."""
+        if self._dtype != torch.bfloat16:
+            return None
+        c = self._host_bf16
+        if c is None or c[0] is not self.matrix:
+            m = self.matrix.cpu().contiguous().view(torch.int16).numpy().view(np.uint16)
+            c = (self.matrix, m)
+            self._host_bf16 = c
+        return c[1]
+
+    def host_i8(self) -> np.ndarray | None:
+        """Cached [capacity, D] int8 host copy for the q8 dense selection
+        scan (native ``i8_matmul_masked``): round(x * 127) of the unit-norm
+        rows, the host twin of :meth:`dense_i8`."""
+        c = self._host_i8
+        if c is None or c[0] is not self.matrix:
+            m, _ = self.host_view()
+            c = (self.matrix, np.clip(np.round(m * 127.0), -127, 127).astype(np.int8))
+            self._host_i8 = c
+        return c[1]
 
     # -- search ------------------------------------------------------------
 

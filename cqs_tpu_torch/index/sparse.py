@@ -7,8 +7,12 @@ device. :meth:`SpladeIndex.packed_terms` joins ids and weight bits into one
 [N_pad, 2T] int32 tensor for the rescore gather. npz/stamp/checksum formats
 are the reference's. :meth:`SpladeIndex.sketch_i8` (int8 sketch of the q8
 and sk8 programs) and :meth:`SpladeIndex.sketch_mini` (folded sketch of the
-screened program) are derived on the device and never persisted. Not ported:
-the host CSR view (the port has no host serving path).
+screened program) are derived on the device and never persisted.
+:meth:`SpladeIndex.search` is the exact sparse-only top-k.
+:meth:`SpladeIndex.host_view` and :meth:`SpladeIndex.host_csr` are the
+numpy views of the CPU serving mirror (``search/program.py::
+hybrid_query_host``), cached on the identity of the tensors they mirror, so
+a mutation (which rebinds them) drops them.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch
 from cqs_tpu_torch.config import limits as default_limits
 from cqs_tpu_torch.index.stamp import Stamp, StampMismatch, checksum
 from cqs_tpu_torch.device import resolve_device
-from cqs_tpu_torch.ops.sparse import build_doc_sketch
+from cqs_tpu_torch.ops.sparse import build_doc_sketch, query_to_dense, sparse_topk
 
 
 def _round_up(x: int, m: int) -> int:
@@ -50,6 +54,8 @@ class SpladeIndex:
         self._packed: tuple[torch.Tensor, torch.Tensor] | None = None
         self._i8_cache: tuple[torch.Tensor, torch.Tensor] | None = None
         self._mini_cache: tuple[torch.Tensor, int, torch.Tensor] | None = None
+        self._host_view: tuple | None = None
+        self._host_csr: tuple | None = None
         self._upload()
 
     def _upload(self) -> None:
@@ -118,6 +124,61 @@ class SpladeIndex:
     @property
     def capacity(self) -> int:
         return int(self.doc_ids.shape[0])
+
+    def host_view(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Cached padded (doc_ids i32, doc_w f32, sketch f32) numpy views for
+        the CPU serving mirror. The sketch is the exact f32 widening of the
+        bf16 sketch, so host candidate scores match the device program's to
+        bf16 product precision. Dropped when the tensors are rebound."""
+        c = self._host_view
+        if c is None or c[0] is not self.doc_ids or c[1] is not self.sketch:
+            c = (self.doc_ids, self.sketch, self.doc_ids.cpu().numpy(),
+                 self.doc_w.to(torch.float32).cpu().numpy(),
+                 self.sketch.to(torch.float32).cpu().numpy())
+            self._host_view = c
+        return c[2], c[3], c[4]
+
+    def host_csr(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Cached CSR inverted index (indptr [V+1] i64, rows [nnz] i32,
+        weights [nnz] f32) over the padded row numbering, for the CPU
+        serving mirror's exact posting walk: the postings ``term -> (row,
+        w)`` of the sparse index's own design, whose candidates are exact
+        where the sketch's are estimates. Tombstones are left to the
+        caller's validity mask. Dropped when ``doc_ids`` is rebound."""
+        c = self._host_csr
+        if c is None or c[0] is not self.doc_ids:
+            ids = self._host_ids.ravel()
+            w = self._host_w.ravel()
+            nz = w > 0.0
+            ids, w = ids[nz], w[nz]
+            rows = np.repeat(np.arange(len(self.ids), dtype=np.int32), self.T)[nz]
+            order = np.argsort(ids, kind="stable")
+            indptr = np.zeros(self.vocab_size + 1, np.int64)
+            np.cumsum(np.bincount(ids, minlength=self.vocab_size), out=indptr[1:])
+            c = (self.doc_ids, indptr, rows[order], w[order].astype(np.float32))
+            self._host_csr = c
+        return c[1], c[2], c[3]
+
+    def search(self, q_ids: np.ndarray, q_w: np.ndarray, k: int,
+               filter_mask: np.ndarray | None = None) -> tuple[np.ndarray, np.ndarray]:
+        """One query's sparse terms -> (scores [k], rows [k]), an exact
+        top-k on the index's device; a row is -1 where its score is masked
+        or not positive (a document sharing no query term is no match)."""
+        dev = self.device
+        qv = query_to_dense(torch.from_numpy(np.asarray(q_ids, dtype=np.int32)).to(dev),
+                            torch.from_numpy(np.asarray(q_w, dtype=np.float32)).to(dev),
+                            self.vocab_size)
+        mask = self.mask
+        if filter_mask is not None:
+            fm = np.zeros((self.capacity,), dtype=np.int32)
+            fm[: len(filter_mask)] = np.asarray(filter_mask, dtype=np.int32)[: self.capacity]
+            mask = mask * torch.from_numpy(fm).to(dev)
+        k_eff = min(k, self.capacity)
+        vals, rows = sparse_topk(qv, self.doc_ids, self.doc_w, k_eff, mask)
+        vals, rows = vals.cpu().numpy(), rows.cpu().numpy()
+        rows = np.where(vals > -1e30, rows, -1)
+        rows = np.where(vals > 0.0, rows, -1)
+        return vals, rows
 
     @property
     def ids_digest(self) -> str:

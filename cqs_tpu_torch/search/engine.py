@@ -8,9 +8,12 @@ engine's explicit
 ``device``, and ``_device_query`` runs the port's programs
 (``search/program.py``) there: the bf16 hybrid program, the int8 candidate
 programs (knob ``scan_q8``: 1 = q8, 2 = sk8) and the screened B=1 program
-(knob ``screen_enable``). The reference's CPU-host BLAS branch and its
-TPU-backend gates have no counterpart: on every device the same device
-program runs, on the CPU with the plain scans.
+(knob ``screen_enable``). An engine on the CPU serves, as the reference
+does on a CPU backend, through the host mirror of those programs
+(``program.hybrid_query_host`` and ``dense_query_host``: numpy with the
+native ``hostscan`` library, ``host_mirror``); its sparse leg walks the
+exact CSR postings unless ``host_sparse_csr`` is 0, which mirrors the
+device program's sketch candidates. A CUDA engine never takes the mirror.
 
 Index swaps and threads: a warm daemon searches (client threads, the
 micro-batcher's thread) while the watch loop refreshes the indexes. Every
@@ -74,8 +77,9 @@ from cqs_tpu_torch.device import resolve_device
 from cqs_tpu_torch.index import DenseIndex, GraphIndex, SpladeIndex, TieredIndex
 from cqs_tpu_torch.models import Embedder, SpladeEncoder
 from cqs_tpu_torch.search.program import (
-    _scan_tile, dense_query, hybrid_query, hybrid_query_batch_q8, hybrid_query_batch_sk8,
-    hybrid_query_screened, trim_query_terms,
+    _scan_tile, bf16_round, dense_query, dense_query_host, hybrid_query,
+    hybrid_query_batch_q8, hybrid_query_batch_sk8, hybrid_query_host, hybrid_query_screened,
+    trim_query_terms,
 )
 
 log = get_tracer("search")
@@ -174,6 +178,12 @@ class SearchEngine:
                  root: str | Path | None = None, *,
                  device: str | torch.device):
         self.device = resolve_device(device)
+        #: serve through the host mirror (``hybrid_query_host`` /
+        #: ``dense_query_host``) instead of the device programs: on the CPU,
+        #: where the reference serves so (its CPU backend); never on a card.
+        #: Set to False, a CPU engine runs the device programs with their
+        #: plain scans
+        self.host_mirror = self.device.type == "cpu"
         self.store = store
         self.embedder = embedder
         self.splade = splade
@@ -607,13 +617,16 @@ class SearchEngine:
     def _device_query(self, index: DenseIndex, q_vec: np.ndarray, query: str,
                       alpha: float, pool: int, fmask: np.ndarray | None,
                       code_only: bool = False):
-        """The device program for one query: the hybrid program when the
-        sparse index is row-aligned with ``index`` and alpha < 1 (the sharded
-        program when ``mesh_shards`` placed one and the query is unfiltered
-        on the dense index; else the screened, int8 or bf16 program); else the
-        ANN tier when there is one, the query is unfiltered and ``index`` is
-        the dense index; else the exact dense-only program. Returns host numpy
-        (fused, rows, dense leg, sparse leg or None)."""
+        """The program for one query, in the reference's order: the sharded
+        program when the sparse index is row-aligned with ``index``, alpha <
+        1, ``mesh_shards`` placed one and the query is unfiltered on the
+        dense index; else, for such a hybrid query, the host mirror on a
+        ``host_mirror`` engine (:meth:`_host_hybrid`) or the screened, int8
+        or bf16 device program (:meth:`_device_hybrid`); else the ANN tier
+        when there is one, the query is unfiltered and ``index`` is the
+        dense index; else the exact dense-only program (its host mirror on a
+        ``host_mirror`` engine).
+        Returns host numpy (fused, rows, dense leg, sparse leg or None)."""
         code = self._code_mask(index) if code_only else None
         sparse_ok = (self.sparse is not None and alpha < 1.0
                      and self.sparse.capacity == index.capacity
@@ -628,58 +641,108 @@ class SearchEngine:
         cmask = fmask
         if code is not None:
             cmask = code if cmask is None else cmask * code
-        valid = index.mask
-        if cmask is not None:
-            if fmask is None:
-                valid = self._device_code_valid(index, code)
-            else:
+        fm = valid = None
+        if self.host_mirror:
+            if cmask is not None:
                 fm = np.zeros(index.capacity, np.int32)
                 fm[: len(cmask)] = cmask
-                valid = valid * torch.from_numpy(fm).to(self.device)
-        dev = self.device
-        q_t = torch.from_numpy(np.array(q_vec, np.float32)).to(dev)
+        else:
+            valid = index.mask
+            if cmask is not None:
+                if fmask is None:
+                    valid = self._device_code_valid(index, code)
+                else:
+                    fm = np.zeros(index.capacity, np.int32)
+                    fm[: len(cmask)] = cmask
+                    valid = valid * torch.from_numpy(fm).to(self.device)
         if sparse_ok:
-            q_ids, q_w = self.splade.encode(query, is_query=True)
-            q_ids2, q_w2 = trim_query_terms(q_ids[None], q_w[None])
-            ids_t = torch.from_numpy(q_ids2).to(dev)
-            w_t = torch.from_numpy(q_w2).to(dev)
-            alphas = torch.tensor([alpha], dtype=torch.float32, device=dev)
-            q_screen = index.project_query(q_vec)
-            screened = (q_screen is not None and index.capacity % 1024 == 0
-                        and self.sparse.sketch_dim % self.lim.screen_dim == 0)
-            q8 = (self._q8_arrays(index)
-                  if not screened and self._sketch_candidates(fmask) else None)
-            if screened:
-                # the two-pass screened B=1 program (screen_enable)
-                q_scr = torch.from_numpy(np.array(q_screen, np.float32)).to(dev)
-                out = hybrid_query_screened(
-                    index.matrix, index.screen, self.sparse.packed_terms(), None,
-                    self.sparse.sketch_mini(self.lim.screen_dim), valid, q_t[None],
-                    q_scr[None], ids_t, w_t, alphas, pool,
-                    min(self.lim.screen_k, index.capacity), self.sparse.vocab_size,
-                    self.sparse.sketch_dim // self.lim.screen_dim,
-                    self.lim.screen_sparse_mult)
-            elif q8 is not None:
-                # the int8 program at B=1: the one the batcher runs, so solo
-                # == batched holds by construction
-                out = self._q8_query(index, q8, valid, q_t[None], ids_t, w_t, alphas, pool)
-            else:
-                out = hybrid_query(
-                    index.matrix, self.sparse.packed_terms(), None, self.sparse.sketch,
-                    valid, q_t, ids_t[0], w_t[0], alpha, pool,
-                    self.sparse.vocab_size, sketch_candidates=self._sketch_candidates(fmask),
-                    extraction=bf16_extraction(index.capacity, 1, self.lim.scan_extraction,
-                                               self.lim.scan_q8_min_rows))
-                out = tuple(x[None] for x in out)
-            return tuple(x[0].cpu().numpy() for x in out)
+            if self.host_mirror:
+                return self._host_hybrid(index, q_vec, query, alpha, pool, fmask, fm)
+            return self._device_hybrid(index, q_vec, query, alpha, pool, fmask, valid)
         if self.ann is not None and fmask is None and index is self.dense:
             ann = self._ann_query(self.ann, q_vec, pool, code)
             if ann is not None:
                 return ann
+        if self.host_mirror:
+            mat_h, mask_h = index.host_view()
+            vals, rows = dense_query_host(mat_h, mask_h if fm is None else mask_h * fm,
+                                          q_vec, pool)
+            return vals, rows, vals, None
+        q_t = torch.from_numpy(np.array(q_vec, np.float32)).to(self.device)
         vals, rows = dense_query(index.matrix, valid, q_t, pool)
         vals = vals.cpu().numpy()
         return vals, rows.cpu().numpy(), vals, None
 
+    def _device_hybrid(self, index: DenseIndex, q_vec: np.ndarray, query: str, alpha: float,
+                       pool: int, fmask: np.ndarray | None, valid: torch.Tensor):
+        """A hybrid query through a device program on the engine's device:
+        the screened B=1 program (``screen_enable``), the int8 program
+        (``scan_q8``) or the bf16 program. Returns host numpy legs."""
+        dev = self.device
+        q_t = torch.from_numpy(np.array(q_vec, np.float32)).to(dev)
+        q_ids, q_w = self.splade.encode(query, is_query=True)
+        q_ids2, q_w2 = trim_query_terms(q_ids[None], q_w[None])
+        ids_t = torch.from_numpy(q_ids2).to(dev)
+        w_t = torch.from_numpy(q_w2).to(dev)
+        alphas = torch.tensor([alpha], dtype=torch.float32, device=dev)
+        q_screen = index.project_query(q_vec)
+        screened = (q_screen is not None and index.capacity % 1024 == 0
+                    and self.sparse.sketch_dim % self.lim.screen_dim == 0)
+        q8 = (self._q8_arrays(index)
+              if not screened and self._sketch_candidates(fmask) else None)
+        if screened:
+            # the two-pass screened B=1 program (screen_enable)
+            q_scr = torch.from_numpy(np.array(q_screen, np.float32)).to(dev)
+            out = hybrid_query_screened(
+                index.matrix, index.screen, self.sparse.packed_terms(), None,
+                self.sparse.sketch_mini(self.lim.screen_dim), valid, q_t[None],
+                q_scr[None], ids_t, w_t, alphas, pool,
+                min(self.lim.screen_k, index.capacity), self.sparse.vocab_size,
+                self.sparse.sketch_dim // self.lim.screen_dim,
+                self.lim.screen_sparse_mult)
+        elif q8 is not None:
+            # the int8 program at B=1: the one the batcher runs, so solo
+            # == batched holds by construction
+            out = self._q8_query(index, q8, valid, q_t[None], ids_t, w_t, alphas, pool)
+        else:
+            out = hybrid_query(
+                index.matrix, self.sparse.packed_terms(), None, self.sparse.sketch,
+                valid, q_t, ids_t[0], w_t[0], alpha, pool,
+                self.sparse.vocab_size, sketch_candidates=self._sketch_candidates(fmask),
+                extraction=bf16_extraction(index.capacity, 1, self.lim.scan_extraction,
+                                           self.lim.scan_q8_min_rows))
+            out = tuple(x[None] for x in out)
+        return tuple(x[0].cpu().numpy() for x in out)
+
+    def _host_hybrid_inputs(self, index: DenseIndex, fm: np.ndarray | None) -> dict:
+        """The index-side arguments of ``hybrid_query_host`` for ``index``
+        (``engine.py:1450-1466``; shared by the solo path and the batcher):
+        the host views, the validity mask times ``fm`` (padded combined
+        filter, or None), the CSR postings when ``host_sparse_csr`` is 1,
+        else the sketch views, and the native scans' views."""
+        mat_h, mask_h = index.host_view()
+        if self.lim.host_sparse_csr:
+            csr = self.sparse.host_csr()
+            ids_h = w_h = sk_h = None
+        else:
+            csr = None
+            ids_h, w_h, sk_h = self.sparse.host_view()
+        return dict(matrix=mat_h, doc_ids=ids_h, doc_w=w_h, sketch=sk_h,
+                    valid_mask=mask_h if fm is None else mask_h * fm, csr=csr,
+                    mat_bf16=index.host_bf16(), mat_i8=self._host_q8_view(index))
+
+    def _host_hybrid(self, index: DenseIndex, q_vec: np.ndarray, query: str, alpha: float,
+                     pool: int, fmask: np.ndarray | None, fm: np.ndarray | None):
+        """A hybrid query through the host mirror (``engine.py:1442-1467``):
+        the B=1 call of ``hybrid_query_host``."""
+        q_ids, q_w = self.splade.encode(query, is_query=True)
+        fused, rows, d_leg, s_leg = hybrid_query_host(
+            q_dense=bf16_round(q_vec)[None], q_ids=np.asarray(q_ids)[None],
+            q_w=np.asarray(q_w, np.float32)[None], alphas=np.asarray([alpha], np.float32),
+            pool=pool, vocab_size=self.sparse.vocab_size,
+            sketch_candidates=self._sketch_candidates(fmask),
+            **self._host_hybrid_inputs(index, fm))
+        return fused[0], rows[0], d_leg[0], s_leg[0]
 
     def _ann_query(self, ann, q_vec: np.ndarray, pool: int, code: np.ndarray | None):
         """The ANN branch of ``_device_query`` (``engine.py:1519``): the
@@ -1460,6 +1523,15 @@ class SearchEngine:
             return None
         mode = int(self.lim.scan_q8)
         return mode, (index.dense_i8() if mode != 2 else None), self.sparse.sketch_i8()
+
+    def _host_q8_view(self, index: DenseIndex) -> np.ndarray | None:
+        """The host int8 dense view when q8 serving applies on a host-mirror
+        engine (``engine.py:1391``): the knob and capacity gates of
+        :meth:`_q8_arrays` without its others, so the mirror's dense leg
+        scans half the bytes and rescores the candidate union exactly."""
+        if not self.lim.scan_q8 or index.capacity < self.lim.scan_q8_min_rows:
+            return None
+        return index.host_i8()
 
     def _q8_query(self, index: DenseIndex, q8, valid, q_dense_b, q_ids_t, q_w_t,
                   alphas_b, pool: int):

@@ -14,6 +14,11 @@ The int8 programs (:func:`hybrid_query_batch_q8`, :func:`hybrid_query_batch_sk8`
 and the screened B=1 program :func:`hybrid_query_screened`) always scan, as
 the reference does; their int8 scans go through the int8 kernels.
 
+:func:`hybrid_query_host` and :func:`dense_query_host` are the reference's
+numpy mirror of the programs, which a CPU engine serves through: the legs of
+the exact branch (each leg's global top-pool) on host arrays, with the
+native ``hostscan`` scans where that library builds.
+
 f32 products are taken with TF32 off (``torch.backends.cuda.matmul.allow_tf32
 = False`` is set where this module is imported): the bf16 rows and queries
 then multiply exactly and only the summation order differs from the
@@ -415,3 +420,204 @@ def hybrid_query_screened(matrix, screen, doc_ids, doc_w, sketch_mini, valid_mas
     d_c = torch.cat([dv, _gather_dot(matrix, sk_rows, q_mat)], dim=1)
     return _exact_rescore_fuse(doc_ids, doc_w, valid_mask, q_ids, q_w, alphas, rows, d_c,
                                pool, vocab_size)
+
+
+# -- the host mirror (CPU serving) --------------------------------------------
+#
+# numpy ports of ``program.py:618-830``, line for line: on a CPU engine the
+# engine and the batcher serve through these instead of the device programs
+# (``SearchEngine.host_mirror``), as the reference does on a CPU backend. A
+# CUDA engine never reaches them.
+
+def bf16_round(x):
+    """Round a host f32 array through bf16 (the device matrices' storage
+    dtype) so host BLAS products equal the device program's bf16 x bf16 ->
+    f32 products exactly (a bf16 product has <= 16 mantissa bits: f32-exact).
+    Rounds to nearest even, as the reference's ``ml_dtypes`` cast does."""
+    x = np.require(x, np.float32, ["C", "W"])          # torch wants writable memory
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+def _np_topk_rows(scores, k: int):
+    """numpy analog of ``lax.top_k`` row selection: descending value, ties
+    broken by lower row index. [B, N] -> [B, k] int32 indices."""
+    n = scores.shape[1]
+    if k >= n:
+        sel = np.broadcast_to(np.arange(n, dtype=np.int64), scores.shape).copy()
+    else:
+        sel = np.argpartition(-scores, k - 1, axis=1)[:, :k]
+        sel.sort(axis=1)                      # ascending index among selected
+    vals = np.take_along_axis(scores, sel, axis=1)
+    order = np.argsort(-vals, axis=1, kind="stable")   # ties keep low index
+    return np.take_along_axis(sel, order, axis=1)[:, :k].astype(np.int32)
+
+
+def sparse_scores_csr(indptr, post_rows, post_w, q_ids, q_w, n):
+    """Exact sparse scores for ONE query over all n rows via the CSR
+    inverted index (``SpladeIndex.host_csr``): walk each query term's
+    posting list and accumulate qw * w (f32 products, f64 sums in posting
+    order). Returns [n] f32."""
+    segs_r, segs_v = [], []
+    for t, qw in zip(q_ids.tolist(), q_w.tolist()):
+        if qw <= 0.0:
+            continue                      # fixed-width padding terms
+        a, b = indptr[t], indptr[t + 1]
+        if a == b:
+            continue
+        segs_r.append(post_rows[a:b])
+        segs_v.append(post_w[a:b] * np.float32(qw))
+    if not segs_r:
+        return np.zeros(n, np.float32)
+    idx = np.concatenate(segs_r)
+    val = np.concatenate(segs_v)
+    return np.bincount(idx, weights=val, minlength=n).astype(np.float32)
+
+
+def hybrid_query_host(matrix, doc_ids, doc_w, sketch, valid_mask,
+                      q_dense, q_ids, q_w, alphas, pool: int, vocab_size: int,
+                      sketch_candidates: bool = True, csr=None,
+                      mat_bf16=None, mat_i8=None):
+    """numpy/BLAS mirror of the hybrid program's exact branch for CPU
+    serving: the same legs, computed on the host (inputs bf16-rounded as the
+    device program's arithmetic; candidate and top-k ties as ``lax.top_k``).
+
+    ``csr`` (the engine's default, knob ``host_sparse_csr``): a
+    ``SpladeIndex.host_csr()`` inverted index. The sparse leg then walks
+    exact posting lists instead of the [N, S] sketch product, so its
+    candidates are exact, not sketch estimates. Downstream (union, s > 0
+    validity, min-max, fusion, duplicate mask) is unchanged. ``mat_bf16``
+    (``DenseIndex.host_bf16``) runs the dense scan through the native bf16
+    kernel; ``mat_i8`` (``DenseIndex.host_i8``, knob ``scan_q8``) makes it
+    an int8 selection scan with an exact f32 rescore on the union.
+
+    All array args are host numpy arrays (f32 matrices pre-rounded from the
+    bf16 rows); shapes as in :func:`hybrid_query_batch`. Returns numpy
+    (fused [B, pool], rows [B, pool], dense [B, pool], sparse [B, pool]).
+    """
+    from cqs_tpu_torch import native
+
+    NEGF = np.float32(NEG)
+    B = q_dense.shape[0]
+    n = matrix.shape[0]
+    q_mat = q_dense.astype(np.float32)
+    invalid = valid_mask <= 0
+    d = None
+    if mat_i8 is not None and mat_i8.shape[0] == n:
+        # q8 dense leg: int8 selection scan (half the bf16 scan's bytes) and
+        # an exact f32 rescore on the candidate union below; ``d`` stays None
+        q_i8 = np.clip(np.round(q_mat * 127.0), -127, 127).astype(np.int8)
+        d_sel = native.i8_matmul_masked(
+            mat_i8, q_i8, (~invalid).astype(np.uint8), NEGF)
+        if d_sel is None:                   # no native lib: numpy fallback
+            d_sel = q_i8.astype(np.float32) @ mat_i8.astype(np.float32).T
+            d_sel[:, invalid] = NEGF
+        dc = _np_topk_rows(d_sel, pool)
+    else:
+        if mat_bf16 is not None and mat_bf16.shape[0] == n:
+            # native scan over the bf16 storage rows: half the bytes of the
+            # f32 widening, one matrix pass for the whole batch, masking
+            # folded in; BLAS when the library is unavailable
+            d = native.bf16_matmul_masked(
+                mat_bf16, q_mat, (~invalid).astype(np.uint8), NEGF)
+        if d is None:
+            d = q_mat @ matrix.T                            # [B, N] BLAS
+            d[:, invalid] = NEGF
+        dc = _np_topk_rows(d, pool)
+    s_all = None
+    if csr is not None:
+        indptr, post_rows, post_w = csr
+        rows_b = []
+        for b in range(B):
+            s = native.csr_accumulate(indptr, post_rows, post_w,
+                                      np.asarray(q_ids[b]),
+                                      np.asarray(q_w[b], np.float32), n)
+            if s is None:                   # no native lib: numpy walk
+                s = sparse_scores_csr(indptr, post_rows, post_w,
+                                      q_ids[b], q_w[b], n)
+            rows_b.append(s)
+        s_all = np.stack(rows_b)                            # [B, N] exact
+    if csr is not None and sketch_candidates:
+        s_sel = np.where(invalid[None, :] | (s_all <= 0.0), NEGF, s_all)
+        sc = _np_topk_rows(s_sel, pool)
+        rows = np.concatenate([dc, sc], axis=1).astype(np.int32)   # [B, 2p]
+    elif sketch_candidates:
+        S = sketch.shape[1]
+        bucket = q_ids % S
+        sign = (1.0 - 2.0 * ((q_ids // S) % 2)).astype(np.float32)
+        q_sk = np.zeros((B, S), np.float32)
+        np.add.at(q_sk, (np.arange(B)[:, None], bucket),
+                  sign * q_w.astype(np.float32))
+        s_est = bf16_round(q_sk) @ sketch.T
+        s_est[:, invalid] = NEGF
+        sc = _np_topk_rows(s_est, pool)
+        rows = np.concatenate([dc, sc], axis=1).astype(np.int32)   # [B, 2p]
+    else:
+        rows = dc.astype(np.int32)
+    if d is not None:
+        d_c = np.take_along_axis(d, rows, axis=1)
+    else:
+        # q8 leg: exact f32 dense scores on the union rows only (a [2p, D]
+        # gather and matvec per query), the products of the full-scan path
+        d_c = np.stack([matrix[rows[b]] @ q_mat[b] for b in range(B)])
+        d_c[np.take(invalid, rows)] = NEGF
+
+    if s_all is not None:
+        s_exact = np.take_along_axis(s_all, rows, axis=1)   # already exact
+    else:
+        # exact sparse rescore: scatter query terms into a [B, V] vocab
+        # vector, gather at the candidates' term ids
+        ids_c = doc_ids[rows]                               # [B, P, T]
+        w_c = doc_w[rows].astype(np.float32)
+        qv = np.zeros((B, vocab_size), np.float32)
+        np.add.at(qv, (np.arange(B)[:, None], q_ids), q_w.astype(np.float32))
+        P, T = ids_c.shape[1], ids_c.shape[2]
+        qv_at = np.take_along_axis(qv, ids_c.reshape(B, P * T), axis=1).reshape(B, P, T)
+        s_exact = (qv_at * w_c).sum(axis=-1)                # [B, P]
+    row_valid = valid_mask[rows] > 0
+    s_exact = np.where(row_valid & (s_exact > 0.0), s_exact, NEGF)
+    d_c = np.where(row_valid, d_c, NEGF)
+
+    # min-max normalize the sparse leg over valid entries; invalid lanes
+    # clamp to mn first so the full-array arithmetic stays finite
+    s_val = s_exact > -1e30
+    any_val = s_val.any(axis=1, keepdims=True)
+    mx = np.where(s_val, s_exact, NEGF).max(axis=1, keepdims=True)
+    mn = np.where(any_val, np.where(s_val, s_exact, -NEGF).min(axis=1, keepdims=True), 0.0)
+    rng = np.where(any_val, np.maximum(mx - mn, np.float32(1e-12)), 1.0)
+    s_norm = np.where(s_val, (np.where(s_val, s_exact, mn) - mn) / rng, NEGF)
+
+    # alpha fusion with union-of-candidates validity (fuse_alpha)
+    a = alphas.astype(np.float32)[:, None]
+    d_valid = d_c > NEGF / 2
+    s_valid = s_norm > NEGF / 2
+    dv = np.where(d_valid, d_c, 0.0)
+    sv = np.where(s_valid, s_norm, 0.0)
+    fused = np.where(a > 0.0, a * dv + (1.0 - a) * sv, dv + 0.1 * sv)
+    fused = np.where(d_valid | s_valid, fused, NEGF).astype(np.float32)
+
+    if sketch_candidates:
+        # NEG out duplicate rows, keeping the first occurrence
+        srt = np.argsort(rows, axis=1, kind="stable")
+        sr = np.take_along_axis(rows, srt, axis=1)
+        dup_sorted = np.concatenate(
+            [np.zeros((B, 1), bool), sr[:, 1:] == sr[:, :-1]], axis=1)
+        dup = np.zeros_like(dup_sorted)
+        np.put_along_axis(dup, srt, dup_sorted, axis=1)
+        fused = np.where(dup, NEGF, fused)
+
+    sel_order = np.argsort(-fused, axis=1, kind="stable")[:, :pool]
+    vals = np.take_along_axis(fused, sel_order, axis=1)
+    out_rows = np.take_along_axis(rows, sel_order, axis=1)
+    d_at = np.take_along_axis(d_c, sel_order, axis=1)
+    s_at = np.take_along_axis(s_exact, sel_order, axis=1)
+    return vals, out_rows, d_at, s_at
+
+
+def dense_query_host(matrix, valid_mask, q_dense, pool: int):
+    """numpy/BLAS mirror of :func:`dense_query` (CPU serving).
+    ``matrix``/``valid_mask`` from ``DenseIndex.host_view()``; ``q_dense``
+    raw f32 [D] (bf16-rounded here). Returns (vals [pool], rows [pool])."""
+    d = (bf16_round(q_dense)[None] @ matrix.T)[0]
+    d[valid_mask <= 0] = np.float32(NEG)
+    rows = _np_topk_rows(d[None], pool)[0]
+    return d[rows], rows

@@ -4,7 +4,9 @@ embeddings and splade-hash terms.
 
 Tolerances: device arrays and terms bit-equal; the hash table and
 embeddings within 1e-6 (XLA's erfinv/log1p are not reproduced bit for bit;
-the bit-equal share is reported)."""
+the bit-equal share is reported). Where the port's tokenizer library loads,
+the reference's is loaded too (``native_tokenizers``): its ids differ from
+the Python fallback's on identifiers such as ``u32``."""
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +23,7 @@ from cqs_tpu_torch.index import DenseIndex, SpladeIndex, Stamp, StampMismatch
 from cqs_tpu_torch.models import Embedder, SpladeEncoder
 from cqs_tpu_torch.models.convert import embedder_params_from_jax
 from cqs_tpu_torch.models.hash_table import normal_table, random_bits
+from test_torch_standalone import native_tokenizers
 
 torch.set_num_threads(1)
 V, T = 32768, 32
@@ -145,7 +148,9 @@ def test_threefry_bits_exact(seed):
     np.testing.assert_array_equal(random_bits(seed, n), ref)
 
 
-def test_embeddings_through_jax_params():
+def test_embeddings_through_jax_params(monkeypatch):
+    ref_lib, port_lib = native_tokenizers(monkeypatch)
+    assert (ref_lib is None) == (port_lib is None)
     texts = ["def validate_token(token): return check(token)",
              "retry with exponential backoff", "", "x" * 3000,
              "class SessionStore: stores active sessions " * 40]
@@ -173,7 +178,9 @@ def test_neural_families_not_ported():
         SpladeEncoder("splade-distil")
 
 
-def test_splade_hash_terms_identical():
+def test_splade_hash_terms_identical(monkeypatch):
+    ref_lib, port_lib = native_tokenizers(monkeypatch)
+    assert (ref_lib is None) == (port_lib is None)
     texts = ["validate the bearer token against the signing key",
              "fn retry_with_backoff(max_attempts: u32) retry retry", "", "a b c " * 200]
     port, ref = SpladeEncoder("splade-hash"), JSplade_enc("splade-hash")

@@ -181,21 +181,30 @@ KNOBS = {
     "q8": {"CQST_SCAN_Q8": "1", "CQST_SCAN_Q8_MIN_ROWS": "1024"},
     "sk8": {"CQST_SCAN_Q8": "2", "CQST_SCAN_Q8_MIN_ROWS": "1024"},
     "screened": {"CQST_SCREEN_ENABLE": "1", "CQST_SCREEN_MIN_ROWS": "1024"},
+    # the CPU engine's own route, the host mirror: its CSR postings, then
+    # its sketch views, then its int8 view
+    "mirror": {},
+    "mirror-sketch": {"CQST_HOST_SPARSE_CSR": "0"},
+    "mirror-q8": {"CQST_SCAN_Q8": "1", "CQST_SCAN_Q8_MIN_ROWS": "1024"},
 }
 
 
 @pytest.mark.parametrize("program", list(KNOBS))
 def test_refreshed_engine_equals_fresh_engine(tmp_project, monkeypatch, program):
     # the caches keyed on tensor identity (dense_i8, sketch_i8, sketch_mini,
-    # packed_terms, the device code mask) and the result cache must all see
-    # the refresh: a warm engine answers as one built from the store anew
+    # packed_terms, the device code mask; the host mirror's views) and the
+    # result cache must all see the refresh: a warm engine answers as one
+    # built from the store anew. The device programs run with host_mirror
+    # off, as on a card
     for k, v in KNOBS[program].items():
         monkeypatch.setenv(k, v)
+    mirror = program.startswith("mirror")
     warm = CommandContext.create(str(tmp_project), device="cpu")
     try:
         run_index_pipeline(warm.root, warm.store, warm.embedder, warm._maybe_splade(),
                            config=warm.config)
         eng = warm.engine
+        eng.host_mirror = mirror
         before = {q: _hits(eng.search(q)) for q in STEP_QUERIES}     # fills every cache
         old = (eng.dense.matrix, eng.sparse.sketch, eng.sparse.doc_ids)
         _mutate(warm.root)
@@ -231,6 +240,20 @@ def test_refreshed_engine_equals_fresh_engine(tmp_project, monkeypatch, program)
         assert torch.equal(s.sketch_mini(eng.lim.screen_dim),
                            fold_sketch(s.sketch, eng.lim.screen_dim))
         assert torch.equal(s.packed_terms(), pack_terms(s.doc_ids, s.doc_w))
+        if mirror:
+            mat_h, mask_h = d.host_view()
+            np.testing.assert_array_equal(mat_h, d.matrix.float().numpy())
+            np.testing.assert_array_equal(mask_h, d.mask.numpy())
+            np.testing.assert_array_equal(d.host_bf16(),
+                                          d.matrix.view(torch.int16).numpy().view(np.uint16))
+            np.testing.assert_array_equal(d.host_i8(), quantize_unit(d.matrix).numpy())
+            ids_h, w_h, sk_h = s.host_view()
+            np.testing.assert_array_equal(ids_h, s.doc_ids.numpy())
+            np.testing.assert_array_equal(w_h, s.doc_w.numpy())
+            np.testing.assert_array_equal(sk_h, s.sketch.float().numpy())
+            indptr, post_rows, post_w = s.host_csr()
+            assert indptr[-1] == len(post_rows) == int((s._host_w > 0).sum())
+            assert post_rows.max() < s.count
         code = eng._code_mask(d)
         if code is not None:
             want = np.zeros(d.capacity, np.int32)
@@ -244,6 +267,7 @@ def test_refreshed_engine_equals_fresh_engine(tmp_project, monkeypatch, program)
         for f in fresh.slot_path.glob("*.npz"):      # build from the store, not from disk
             f.unlink()
         assert "" not in fresh.engine.dense.ids
+        fresh.engine.host_mirror = mirror
         for q in STEP_QUERIES:
             _assert_same_hits(after[q], _hits(fresh.engine.search(q)))
     finally:

@@ -7,7 +7,9 @@
     the projection the same seeded orthonormal matrix, the projected screen
     within one bf16 ulp (f32 sums in another order can flip a rounding).
 (c) The port's engine on the fixture project with ``scan_q8=1``,
-    ``scan_q8=2`` and ``screen_enable=1`` (both modes): the selected program
+    ``scan_q8=2`` and ``screen_enable=1`` (both modes), on its device route
+    (``host_mirror`` off: a CPU engine serves through the host mirror by
+    default, ``tests/test_torch_host_path.py``): the selected program
     is the one that ran, solo equals the ``QueryBatcher`` for q8 and sk8, and
     ``mesh_shards`` (once refused) serves the single-device top 5.
 
@@ -191,6 +193,7 @@ def test_engine_runs_the_selected_program(tmp_project, monkeypatch, route):
         monkeypatch.setattr(tengine, name, spy)
     assert main(["index", "--path", str(tmp_project), "--device", "cpu"]) == 0
     ctx = CommandContext.create(str(tmp_project), device="cpu")
+    ctx.engine.host_mirror = False          # the device programs, as on a card
     try:
         solo = {q: _hits(ctx.engine.search(q)) for q in QUERIES}
         assert calls[program] >= len(QUERIES) - 1 and calls["bf16"] == 0, calls
@@ -199,6 +202,7 @@ def test_engine_runs_the_selected_program(tmp_project, monkeypatch, route):
             assert ctx.engine.dense.screen is not None
             return
         ctx2 = CommandContext.create(str(tmp_project), device="cpu")
+        ctx2.engine.host_mirror = False
         batcher = QueryBatcher(ctx2.engine)
         try:
             batcher.pause()
