@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``cqs_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--phases kernels,e2e,commands,scale,shard,serve,neural,graph,train,host]
+    python3 chip_smoke.py [--seed 0] [--phases kernels,e2e,commands,scale,shard,serve,neural,graph,train,grid,host]
 
 Phases, each fatal on error (non-zero exit, no result line):
 
@@ -174,6 +174,17 @@ Phases, each fatal on error (non-zero exit, no result line):
    trainer's step time (forward, backward, optimizer), sequences/s,
    tokens/s, share of the bf16 peak, peak memory and profile (printed, not
    checked);
+9b. grid: the trainers' (dp, tp) grid on logical meshes of the card, (1, 2),
+   (1, 4), (1, 8) and (3, 2) (and every real card through ``make_2d_mesh()``
+   on a machine with more than one): the FINAL distillation step and the
+   r3a contrastive step (2 mined negatives) at their published widths, three
+   steps from one init against the one-device trainer at the same global
+   batch (bf16: losses within rtol 2e-2, deltas' cosine >= 0.99 over the
+   model, >= 0.9 a parameter), a small f32 configuration at (1, 4) (rtol
+   1e-5, cosine >= 0.9999, <= 1% of entries off by 1e-6); each mesh's step
+   ms, launches, busy ms and peak memory; then ``train-distill --steps 3``
+   through the CLI with ``make_2d_mesh`` giving a (1, 4) logical mesh, its
+   checkpoint served as a one-device tier. At most 90 s;
 10. host: the sparse-only API on the card against the same calls on the
    CPU (``SpladeIndex.search`` over 70,000 rows, ``sparse_scores_batch``
    across its 65,536-row tile, ``build_doc_sketch_device`` against the host
@@ -195,9 +206,10 @@ phase 5, read just before and just after each run of phase 5b's path (the
 sharded path must launch ``LOOP_SPLIT`` and ``LOOP_SPLIT_I8`` and nothing
 else, its small shards ``LOOP_CC`` and ``LOOP_I8_CC``), zeroed again before
 phase 4b and read after it, and again around
-phase 6, phase 7, phase 8 and phase 9 (the split bf16 loop kernel must have
-launched from the commands' path, the socket path, the neural path, the
-graph path and the train path), and around phase 10 (the split kernel
+phase 6, phase 7, phase 8, phase 9 and phase 9b (the split bf16 loop kernel
+must have launched from the commands' path, the socket path, the neural
+path, the graph path, the train path and the grid path's corpus and tier),
+and around phase 10 (the split kernel
 must launch on its path); a
 branch wrapper that
 did not launch in phases 4-5 fails the run, and so
@@ -222,6 +234,7 @@ import argparse
 import contextlib
 import io
 import json
+import math
 import os
 import shutil
 import statistics
@@ -441,19 +454,23 @@ def check_loop_split(torch, dev, seed: int, grid: str = "narrow") -> int:
     return cases
 
 
-def device_busy(torch, fn, calls: int = 5) -> tuple[float, dict, float, dict]:
+def device_busy(torch, fn, calls: int = 5, host: bool = True) -> tuple[float, dict, float, dict]:
     """Device-busy milliseconds per call of fn (``torch.profiler`` kernel
     time over ``calls`` calls after a warm-up call), the per-call time of
     each kernel by name (the first 60 characters; kernels whose names share
     them are summed), the kernel launches per call, and the host's CUDA
     runtime calls per call (``cuda*`` events: count and self milliseconds),
     which show a launch-bound or synchronizing caller. The host's launch
-    rate does not move the busy time, unlike wall time."""
+    rate does not move the busy time, unlike wall time. ``host=False``
+    traces the device's activity only (no host operators, so no runtime
+    calls are returned): it takes a fraction of the time to record and read
+    a step of many thousands of launches."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -4213,12 +4230,12 @@ def encoder_flops(layers: int, hidden: int, inter: int, tokens: int, rows: int,
     return 6.0 * params * tokens + 3.0 * layers * 4.0 * length * length * hidden * rows
 
 
-def time_step(torch, loss_fn, apply, batch, iters: int = 5) -> dict:
+def time_step(torch, loss_fn, apply, batch, iters: int = 5, warmup: int = 2) -> dict:
     """One training step's device time split into forward (the loss),
     backward and the optimizer (CUDA events, mean of ``iters`` steps after
-    two warm-up steps), its wall time (host clock to a synchronize) and the
-    peak device memory of a step."""
-    for _ in range(2):
+    ``warmup`` warm-up steps), its wall time (host clock to a synchronize)
+    and the peak device memory of a step."""
+    for _ in range(warmup):
         loss, _ = loss_fn(*batch)
         loss.backward()
         apply()
@@ -4525,11 +4542,321 @@ def phase_train(torch, dev, report, smi: str, recipes=TRAIN_RECIPES, max_pairs: 
     report["train"] = out
 
 
+# -- phase 9b: the trainers' (dp, tp) grid on logical devices of the card -------
+
+#: the grid phase's logical meshes (dp, tp) on the one card
+GRID_MESHES = ((1, 2), (1, 4), (1, 8), (3, 2))
+#: its steps at ``docs/trained-tier.md``'s published widths: (TrainConfig
+#: fields, global batch, candidates or mined negatives a row): the FINAL
+#: distillation step and the r3a contrastive step with two mined negatives
+GRID_RECIPES = {
+    "distill": (dict(hidden_size=384, num_layers=4, intermediate_size=768, seq_len=64), 16, 16),
+    "contrastive": (dict(hidden_size=384, num_layers=6, intermediate_size=1536, seq_len=128),
+                    128, 2),
+}
+#: the small f32 configuration held to f32 tolerance at (1, 4) (a distill step)
+GRID_F32 = (dict(hidden_size=128, num_layers=2, num_heads=4, intermediate_size=256,
+                 seq_len=32), 8, 4)
+#: the grid phase's wall-clock limit, seconds
+GRID_LIMIT_S = 90.0
+#: the train-distill command line the phase runs over a (1, 4) logical mesh
+GRID_CLI = ["--steps", "3", "--batch", "16", "--hidden-size", "384", "--intermediate-size",
+            "768", "--cands", "16"]
+
+
+def grid_batches(kind: str, cfg: dict, rows: int, k: int, steps: int, seed: int):
+    """``steps`` host batches of ``rows`` rows at ``cfg``'s sequence length,
+    drawn from ``seed``: token ids in [4, 32768), each row's mask a live
+    prefix of 8 tokens or more; distill: ``k`` candidates a query, teacher
+    scores N(0.5, 0.2), the last lane of row 0 padded (one live token,
+    score -1e30, valid 0); contrastive: ``k`` mined negatives a pair."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    length = cfg["seq_len"]
+
+    def side(*shape):
+        ids = rng.integers(4, 32768, size=(*shape, length)).astype(np.int32)
+        live = rng.integers(8, length + 1, size=shape)
+        mask = (np.arange(length) < live[..., None]).astype(np.int32)
+        return ids * mask, mask
+
+    out = []
+    for _ in range(steps):
+        if kind == "distill":
+            q, d = side(rows), side(rows, k)
+            t = rng.normal(0.5, 0.2, size=(rows, k)).astype(np.float32)
+            valid = np.ones((rows, k), np.int32)
+            d[0][0, k - 1], d[1][0, k - 1] = 0, 0
+            d[1][0, k - 1, 0] = 1
+            t[0, k - 1], valid[0, k - 1] = -1e30, 0
+            out.append([*q, *d, t, valid])
+        else:
+            out.append([*side(rows), *side(rows), *side(rows, k)])
+    return out
+
+
+def delta_stats(torch, before: dict, after: dict, want: dict) -> dict:
+    """A grid's parameter deltas (``after - before``) against the one-device
+    trainer's (``want``, already deltas), on the card in float64: the cosine
+    over the model, the lowest cosine of one parameter (the attention key
+    biases left out: their true gradient is 0, both deltas are rounding
+    noise) and the share of entries off by more than 1e-6."""
+    dot = na = nb = 0.0
+    off = total = 0
+    worst = (1.0, "")
+    for key, w in want.items():
+        d = (after[key] - before[key]).double()
+        w = w.double()
+        p_dot, p_na, p_nb = float(d.flatten() @ w.flatten()), float(w.norm() ** 2), float(d.norm() ** 2)
+        dot, na, nb = dot + p_dot, na + p_na, nb + p_nb
+        off += int(((d - w).abs() > 1e-6).sum())
+        total += w.numel()
+        if not key.endswith("k.bias"):
+            cos = 1.0 if torch.equal(d, w) else p_dot / max((p_na * p_nb) ** 0.5, 1e-30)
+            worst = min(worst, (cos, key))
+    return {"cosine": dot / (na * nb) ** 0.5, "worst": worst[0], "worst_param": worst[1],
+            "off_share": off / total}
+
+
+def phase_grid(torch, dev, report, smi: str, meshes=GRID_MESHES, recipes=GRID_RECIPES,
+               f32=GRID_F32, cli_flags=GRID_CLI, held: int = 8,
+               corpus=("cqs_tpu/parallel", "cqs_tpu/train", "docs")):
+    """The trainers' (dp, tp) grid (``parallel/tensor_parallel.py``) on the
+    card, each mesh ``Mesh([card] * dp * tp, ("dp", "tp"), (dp, tp))`` of
+    logical devices, and every real card through ``make_2d_mesh()`` when the
+    machine has more than one. For each recipe of :data:`GRID_RECIPES` (FINAL
+    distillation, r3a contrastive with 2 mined negatives): one init (seed 0)
+    and three seeded batches; the one-device trainer at the global batch (at
+    dp 3 the multiple of 3 below it, 15 and 126) and each grid trainer at
+    ``batch_per_device = global / dp`` run three steps from the same
+    parameters (checked bit for bit), held to each other in bf16 by
+    ``tests/test_torch_train.py``'s bf16 rule: losses within rtol 2e-2,
+    the deltas' cosine over the model >= 0.99 and per parameter >= 0.9 (the
+    share of entries off printed). A small f32 configuration at (1, 4) is
+    held to the f32 rule: losses within rtol 1e-5, cosine >= 0.9999, at most
+    1% of entries off by more than 1e-6. Each mesh's step ms (CUDA events),
+    launches and device-busy ms (``torch.profiler``) and peak memory are
+    printed beside ``smi``. Then ``train-distill --steps 3`` at the FINAL
+    widths through ``cmd_train_distill`` in this process, with the port's
+    ``make_2d_mesh`` giving a (1, 4) logical mesh on the card, on a small
+    corpus (``corpus``: index, mined pairs, the teacher pass first); its
+    checkpoint then serves as the tier of a one-device ``TieredServing``.
+    The phase fails past :data:`GRID_LIMIT_S` seconds."""
+    import cqs_tpu_torch.parallel as tparallel
+    from cqs_tpu_torch.cli.context import CommandContext
+    from cqs_tpu_torch.cli.main import main
+    from cqs_tpu_torch.parallel.mesh import Mesh, make_2d_mesh
+    from cqs_tpu_torch.parallel.train import ContrastiveTrainer, DistillTrainer, TrainConfig
+    from cqs_tpu_torch.search.engine import TieredServing
+
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    out: dict = {"smi": smi, "steps": {}, "seconds": {}}
+    grids = [(f"{dp}x{tp}", Mesh([dev] * (dp * tp), ("dp", "tp"), (dp, tp)))
+             for dp, tp in meshes]
+    if cuda and torch.cuda.device_count() > 1:
+        real = make_2d_mesh()
+        grids.append((f"cards {real.shape['dp']}x{real.shape['tp']}", real))
+
+    def trainer(kind, cfg, rows, mesh=None, seed=0, dtype=torch.bfloat16):
+        cls = DistillTrainer if kind == "distill" else ContrastiveTrainer
+        dp = mesh.shape["dp"] if mesh is not None else 1
+        tcfg = TrainConfig(**cfg, batch_per_device=rows // dp, dtype=dtype)
+        return cls(tcfg, seed, device=None if mesh is not None else dev, mesh=mesh)
+
+    def run(tr, kind, batches):
+        fn = tr.distill_step if kind == "distill" else tr.train_step
+        return [fn(*b)[0] for b in batches]
+
+    def state(tr):
+        return {k: v.detach().clone() for k, v in tr.state_dict().items()}
+
+    def measure(tr, kind, batch) -> dict:
+        # after the three compared steps: no warm-up of its own; the
+        # profile traces the device only (a 3x2 r3a step is ~14,600 launches)
+        if not cuda:
+            return {}
+        loss_fn = tr.distill_loss if kind == "distill" else tr.loss
+        t = time_step(torch, loss_fn, tr.opt.step, batch, iters=3, warmup=0)
+
+        def one_step():
+            loss, _ = loss_fn(*batch)
+            loss.backward()
+            tr.opt.step()
+
+        busy, _, launches, _ = device_busy(torch, one_step, calls=1, host=False)
+        if not launches:
+            fail(f"grid: the profile of a {kind} step saw no kernel launch")
+        t.update({"busy_ms": busy, "launches": launches})
+        return t
+
+    def check(label, got, ref, before, after, f32_rule):
+        rtol = 1e-5 if f32_rule else 2e-2
+        bad = [(a, b) for a, b in zip(got, ref["losses"]) if not abs(a - b) <= rtol * abs(b)]
+        if bad or not all(math.isfinite(x) for x in got):
+            fail(f"grid {label}: losses {got} vs one device {ref['losses']} (rtol {rtol})")
+        st = delta_stats(torch, before, after, ref["deltas"])
+        ok = (st["cosine"] >= 0.9999 and st["worst"] >= 0.9999 and st["off_share"] <= 0.01
+              if f32_rule else st["cosine"] >= 0.99 and st["worst"] >= 0.9)
+        if not ok:
+            fail(f"grid {label}: parameter deltas against one device: {st}")
+        return st
+
+    t0 = time.perf_counter()
+    try:
+        for kind, (cfg, rows, k) in recipes.items():
+            data = grid_batches(kind, cfg, rows, k, 3, seed=11)
+            refs = {}
+            for glob in sorted({rows, rows // 3 * 3} if any(dp == 3 for dp, _ in meshes)
+                               else {rows}):
+                tr = trainer(kind, cfg, glob)
+                before = state(tr)
+                batches = [[a[:glob] for a in b] for b in data]
+                losses = run(tr, kind, batches)
+                after = state(tr)
+                refs[glob] = {"losses": losses, "before": before,
+                              "deltas": {k2: after[k2] - before[k2] for k2 in before}}
+                del after
+                # timed at the recipe's batch; the dp-3 batch is a reference only
+                t = measure(tr, kind, batches[0]) if glob == rows else {}
+                out["steps"][f"{kind} 1x1 B{glob}"] = {"losses": losses, **t}
+                out["seconds"][f"{kind} 1x1 B{glob}"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                del tr
+            for label, mesh in grids:
+                dp = mesh.shape["dp"]
+                glob = rows // dp * dp
+                ref = refs.get(glob)
+                if ref is None:
+                    continue
+                tr = trainer(kind, cfg, glob, mesh)
+                before = state(tr)
+                if any(not torch.equal(before[k2], ref["before"][k2]) for k2 in before):
+                    fail(f"grid {kind} {label}: the grid's initial parameters are not the "
+                         f"one-device trainer's")
+                batches = [[a[:glob] for a in b] for b in data]
+                losses = run(tr, kind, batches)
+                st = check(f"{kind} {label}", losses, ref, before, state(tr), False)
+                t = measure(tr, kind, batches[0])
+                out["steps"][f"{kind} {label} B{glob}"] = {"losses": losses, **st, **t}
+                out["seconds"][f"{kind} {label}"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                del tr, before
+                if cuda:
+                    torch.cuda.empty_cache()
+            del refs
+        # the f32 configuration at (1, 4): the f32 rule
+        cfg, rows, k = f32
+        data = grid_batches("distill", cfg, rows, k, 3, seed=12)
+        one = trainer("distill", cfg, rows, dtype=torch.float32)
+        before = state(one)
+        ref = {"losses": run(one, "distill", data)}
+        ref["deltas"] = {k2: v - before[k2] for k2, v in state(one).items()}
+        mesh = Mesh([dev] * 4, ("dp", "tp"), (1, 4))
+        tr = trainer("distill", cfg, rows, mesh, dtype=torch.float32)
+        losses = run(tr, "distill", data)
+        out["f32_1x4"] = {"losses": losses, "one_device": ref["losses"],
+                          **check("f32 1x4", losses, ref, before, state(tr), True)}
+        out["seconds"]["f32 1x4"] = time.perf_counter() - t0
+        del one, tr
+        for label, t in out["steps"].items():
+            cells = (f"{t['step_ms']:.2f} ms a step (forward {t['forward_ms']:.2f}, backward "
+                     f"{t['backward_ms']:.2f}, optimizer {t['optimizer_ms']:.2f}; wall "
+                     f"{t['wall_ms']:.2f}), {t['launches']:.0f} launches, {t['busy_ms']:.2f} ms "
+                     f"busy, peak {t['peak_gib']:.2f} GiB" if "step_ms" in t else "not timed")
+            held_to = ("" if "cosine" not in t else
+                       f"; deltas cosine {t['cosine']:.5f} (lowest parameter {t['worst']:.4f}), "
+                       f"{100 * t['off_share']:.1f}% of entries off by > 1e-6")
+            print(f"grid[{label}]: {cells}; losses "
+                  f"{[round(x, 5) for x in t['losses']]}{held_to}; {smi}")
+        print(f"grid[f32 1x4]: losses {out['f32_1x4']['losses']} vs one device "
+              f"{out['f32_1x4']['one_device']} (rtol 1e-5); deltas cosine "
+              f"{out['f32_1x4']['cosine']:.7f}, lowest parameter {out['f32_1x4']['worst']:.6f}, "
+              f"{100 * out['f32_1x4']['off_share']:.2f}% off (<= 1%); {smi}")
+        out["steps_s"] = time.perf_counter() - t_phase
+        # train-distill through the CLI on a (1, 4) logical mesh
+        tmp = Path(tempfile.mkdtemp(prefix="cqs_grid_"))
+        try:
+            proj = tmp / "corpus"
+            ignore = shutil.ignore_patterns("__pycache__", "*.so", "*.srchash", ".cqs-tpu",
+                                            "_build")
+            for name in corpus:
+                shutil.copytree(REPO / name, proj / name, ignore=ignore)
+            (proj / ".cqs-tpu").mkdir()
+
+            def cli(label, argv):
+                rc, text, ms = run_cli_text(main, argv + ["--path", str(proj), "--device",
+                                                          str(dev)])
+                if rc != 0:
+                    fail(f"grid: {label} exited {rc}: {text[-2000:]}")
+                return text
+
+            cli("index", ["index"])
+            pairs, pool, gate = tmp / "pairs.jsonl", tmp / "pool.json", tmp / "gate.json"
+            labels, ckpt = tmp / "labels.jsonl", tmp / "distilled"
+            cli("train-data", ["train-data", "--source", "all", "--max", "400",
+                               "--engine-negatives", "2", "--out", str(pairs)])
+            out["pool"] = write_pool(proj, pairs, pool, gate, held)
+            cli("teacher", ["train-distill", "--labels-only", "--pool", str(pool), "-k", "32",
+                            "--labels", str(labels)])
+            logical = Mesh([dev] * 4, ("dp", "tp"), (1, 4))
+            saved = tparallel.make_2d_mesh
+            tparallel.make_2d_mesh = lambda *a, **kw: logical
+            try:
+                t0 = time.perf_counter()
+                text = cli("train-distill", ["train-distill", "--labels", str(labels),
+                                             *cli_flags, "--out", str(ckpt)])
+                out["cli_s"] = time.perf_counter() - t0
+                out["seconds"]["train-distill"] = out["cli_s"]
+            finally:
+                tparallel.make_2d_mesh = saved
+            if "mesh {'dp': 1, 'tp': 4}" not in text:
+                fail(f"grid: train-distill did not train on the (1, 4) mesh: {text[-800:]}")
+            steps = int(cli_flags[cli_flags.index("--steps") + 1])
+            logged = [json.loads(ln)["loss"] for ln in
+                      (ckpt / "train_log.jsonl").read_text().splitlines()]
+            if len(logged) != steps or not all(math.isfinite(x) for x in logged):
+                fail(f"grid: train-distill on the (1, 4) mesh logged {logged}")
+            out["cli_losses"] = logged
+            slot = proj / ".cqs-tpu" / "slots" / "distilled"
+            slot.mkdir(parents=True)
+            (slot / "config.toml").write_text(
+                f'[embedding]\nmodel = "cqs-mini"\nmodel_path = "{ckpt}"\n')
+            cli("tier index", ["--slot", "distilled", "index"])
+            with knobs({"CQST_TIER_SLOT": "distilled"}):
+                ctx = CommandContext.create(str(proj), device=dev)
+                try:
+                    eng = ctx.engine
+                    if not isinstance(eng, TieredServing):
+                        fail(f"grid: tier_slot=distilled gave {type(eng).__name__}")
+                    routed = [q for q in TIER_QUERIES if eng.engine_for(q) is eng._tier]
+                    answered = [q for q in routed if eng.search(q).hits]
+                finally:
+                    ctx.close()
+            if not answered:
+                fail(f"grid: no query answered by the grid-trained tier (routed: {routed})")
+            out["tier_answered"] = answered
+            print(f"grid: train-distill {' '.join(cli_flags)} on a (1, 4) logical mesh through "
+                  f"the CLI in {out['cli_s']:.1f} s, losses {[round(x, 4) for x in logged]}; "
+                  f"its checkpoint served as the tier of a one-device engine "
+                  f"({len(answered)} of {len(routed)} routed queries answered); {smi}")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    finally:
+        out["phase_s"] = time.perf_counter() - t_phase
+        report["grid"] = out
+    print(f"grid: the phase took {out['phase_s']:.1f} s (steps {out['steps_s']:.1f} s: "
+          f"{ {k: round(v, 1) for k, v in out['seconds'].items()} }); {smi}")
+    if cuda and out["phase_s"] > GRID_LIMIT_S:
+        fail(f"grid: the phase took {out['phase_s']:.1f} s, past its {GRID_LIMIT_S:.0f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
-                    default="kernels,e2e,commands,scale,shard,serve,neural,graph,train,host")
+                    default="kernels,e2e,commands,scale,shard,serve,neural,graph,train,grid,host")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not (REPO / "cqs_tpu_torch" / "__init__.py").is_file():
@@ -4655,6 +4982,18 @@ def main() -> int:
         print(f"launches on the train path: {train_launches}")
         if LOOP_SPLIT.launches == 0:
             fail(f"kernel {LOOP_SPLIT.name} was not launched on the train path")
+    # the training grid: zeroed just before, read just after (the grid's
+    # steps reach no kernel; its corpus's engine, teacher pass and tier do)
+    for k in IMPLS:
+        k.launches = 0
+    if "grid" in phases:
+        phase_grid(torch, dev, report, smi)
+    torch.cuda.synchronize()
+    grid_launches = {k.name: k.launches for k in IMPLS}
+    if "grid" in phases:
+        print(f"launches on the grid path: {grid_launches}")
+        if LOOP_SPLIT.launches == 0:
+            fail(f"kernel {LOOP_SPLIT.name} was not launched on the grid path")
     # the sparse-only API and the host mirror against the card: zeroed just
     # before, read just after
     for k in IMPLS:
@@ -4689,7 +5028,7 @@ def main() -> int:
                                      + small_launches[k.name] + commands_launches[k.name]
                                      + serve_launches[k.name] + neural_launches[k.name]
                                      + graph_launches[k.name] + train_launches[k.name]
-                                     + host_launches[k.name]),
+                                     + grid_launches[k.name] + host_launches[k.name]),
                         "main_path_launches": launches[k.name],
                         "shard_path_launches": shard_launches[k.name],
                         "small_shard_path_launches": small_launches[k.name],
@@ -4698,6 +5037,7 @@ def main() -> int:
                         "neural_path_launches": neural_launches[k.name],
                         "graph_path_launches": graph_launches[k.name],
                         "train_path_launches": train_launches[k.name],
+                        "grid_path_launches": grid_launches[k.name],
                         "host_path_launches": host_launches[k.name],
                         "kernel_phase_launches": kernel_phase[k.name],
                         "max_abs_err": report.get("errs", {}).get(k.name),

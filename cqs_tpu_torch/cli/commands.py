@@ -1134,16 +1134,17 @@ def cmd_train_data(ctx: CommandContext, args) -> int:
     return 0
 
 
-def _train_config(args, fields):
+def _train_config(args, fields, mesh):
     """``TrainConfig`` defaults with the given flags that are set (0 = unset);
-    ``--batch`` is the global batch, one device's."""
+    ``--batch`` is the global batch, divided over the mesh's dp rows as the
+    reference divides it."""
     import dataclasses
 
     from cqs_tpu_torch.parallel import TrainConfig
 
     cfg = TrainConfig()
     if getattr(args, "batch", 0):
-        cfg = dataclasses.replace(cfg, batch_per_device=max(1, args.batch))
+        cfg = dataclasses.replace(cfg, batch_per_device=max(1, args.batch // mesh.shape["dp"]))
     for f in fields:
         v = getattr(args, f, None)
         if v:
@@ -1204,7 +1205,7 @@ def _encode_texts(trainer, tok, texts: list[str], prefix: str, seq_len: int):
 def cmd_train(ctx: CommandContext, args) -> int:
     import numpy as np
 
-    from cqs_tpu_torch.parallel import ContrastiveTrainer
+    from cqs_tpu_torch.parallel import ContrastiveTrainer, make_2d_mesh
     from cqs_tpu_torch.parallel.train import AdamW, make_pair_batch
     from cqs_tpu_torch.train.data import load_pairs
 
@@ -1212,13 +1213,16 @@ def cmd_train(ctx: CommandContext, args) -> int:
     if len(pairs) < 8:
         _print(f"need at least 8 pairs, have {len(pairs)}")
         return 1
+    # every card of the device's kind (the CPU's one device), as the
+    # reference trains over every JAX device
+    mesh = make_2d_mesh(device=ctx.device)
     cfg = _train_config(args, ("lr", "seq_len", "hidden_size", "num_layers",
-                               "intermediate_size", "family"))
-    trainer = ContrastiveTrainer(cfg, device=ctx.device)
+                               "intermediate_size", "family"), mesh)
+    trainer = ContrastiveTrainer(cfg, mesh=mesh)
     tok = ctx.embedder.tokenizer
     B = trainer.global_batch
     rng = np.random.default_rng(0)
-    _print(f"training on {len(pairs)} pairs, global batch {B}, device {ctx.device}")
+    _print(f"training on {len(pairs)} pairs, global batch {B}, mesh {dict(mesh.shape)}")
     use_hard = bool(getattr(args, "hard_negatives", True))
     # query/doc asymmetry: prefixes are trained in and stamped into the
     # checkpoint config; serving (Embedder) applies them automatically
@@ -1350,6 +1354,7 @@ def cmd_train_distill(ctx: CommandContext, args) -> int:
     """Distill the fused production ordering into a dense student: teacher
     labels are the engine's top-k per mined query, the student a dual
     encoder trained with listwise KL over the candidates."""
+    from cqs_tpu_torch.parallel import make_2d_mesh
     from cqs_tpu_torch.parallel.train import DistillTrainer
     from cqs_tpu_torch.train.data import mine_labeled_queries
     from cqs_tpu_torch.train.distill import (
@@ -1373,10 +1378,11 @@ def cmd_train_distill(ctx: CommandContext, args) -> int:
     if getattr(args, "labels_only", False):
         return 0
 
+    mesh = make_2d_mesh(device=ctx.device)
     cfg = _train_config(args, ("lr", "seq_len", "hidden_size", "num_layers",
-                               "intermediate_size", "temperature"))
+                               "intermediate_size", "temperature"), mesh)
     trainer = DistillTrainer(cfg, teacher_temp=getattr(args, "teacher_temp", 0.05),
-                             device=ctx.device)
+                             mesh=mesh)
     out = Path(args.out)
     resume_p = out / "params.pkl"
     if getattr(args, "resume", False) and resume_p.exists():
@@ -1390,7 +1396,7 @@ def cmd_train_distill(ctx: CommandContext, args) -> int:
                              k=getattr(args, "cands", 16))
     B = trainer.global_batch
     _print(f"distilling on {len(batcher.labels)} label rows, batch {B} x "
-           f"K={batcher.k}, device {ctx.device}")
+           f"K={batcher.k}, mesh {dict(mesh.shape)}")
     log = _TrainLog(out)
     try:
         for step in range(args.steps):

@@ -78,6 +78,19 @@ EMBED_NAMES = frozenset({"word", "position", "token_type", "tok_embed"})
 HEAD_PROJECTIONS = frozenset({"q", "k", "v"})
 
 
+def flax_leaf_name(path: list[str], ndim: int) -> str:
+    """The Flax leaf name of the port's parameter at ``path`` (its
+    ``state_dict`` key split on dots) with ``ndim`` dims: ``weight`` of a 1-D
+    norm -> ``scale``, of an ``Embed`` (names in :data:`EMBED_NAMES`) ->
+    ``embedding``, of a ``Dense`` -> ``kernel``; any other name is kept."""
+    leaf, owner = path[-1], (path[-2] if len(path) > 1 else "")
+    if leaf != "weight":
+        return leaf
+    if ndim == 1:
+        return "scale"
+    return "embedding" if owner in EMBED_NAMES else "kernel"
+
+
 def flax_tree_from_torch(state_dict: Mapping[str, torch.Tensor], cfg) -> dict:
     """The inverse of :func:`params_from_flax`: a port module's
     ``state_dict`` -> the reference's nested Flax tree ``{"params": ...}`` of
@@ -96,13 +109,9 @@ def flax_tree_from_torch(state_dict: Mapping[str, torch.Tensor], cfg) -> dict:
     for key, value in state_dict.items():
         path = key.split(".")
         arr = value.detach().float().cpu().numpy()
-        leaf, owner = path[-1], (path[-2] if len(path) > 1 else "")
-        if leaf == "weight" and arr.ndim == 1:
-            leaf = "scale"
-        elif leaf == "weight" and owner in EMBED_NAMES:
-            leaf = "embedding"
-        elif leaf == "weight":
-            arr, leaf = arr.T, "kernel"
+        leaf, owner = flax_leaf_name(path, arr.ndim), (path[-2] if len(path) > 1 else "")
+        if leaf == "kernel":
+            arr = arr.T
             if owner in HEAD_PROJECTIONS:
                 arr = arr.reshape(arr.shape[0], -1, hd)
             elif owner == "out":

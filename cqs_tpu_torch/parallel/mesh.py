@@ -40,12 +40,28 @@ class Mesh:
         if len(dims) != len(self.axis_names) or int(np.prod(dims)) != len(self.devices):
             raise ValueError(f"{len(self.devices)} devices do not fill a mesh of shape "
                              f"{dims} over axes {self.axis_names}")
+        cards = local_device_count("cuda") if any(
+            d.type == "cuda" for d in self.devices) else 0
+        missing = [str(d) for d in self.devices if d.type == "cuda" and (d.index or 0) >= cards]
+        if missing:
+            raise ValueError(f"a mesh over {missing[0]} needs that card; {cards} are visible")
         #: axis name -> size, read as ``mesh.shape.get("dp", 1)``
         self.shape = dict(zip(self.axis_names, dims))
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    def device_at(self, *coords: int) -> torch.device:
+        """The device at ``coords`` on the axes, row-major (the reference's
+        ``devices.reshape(shape)``): on a (dp, tp) mesh, (r, t) is
+        ``devices[r * tp + t]``."""
+        flat = 0
+        for c, n in zip(coords, self.shape.values(), strict=True):
+            if not 0 <= c < n:
+                raise IndexError(f"{coords} is off a mesh of shape {tuple(self.shape.values())}")
+            flat = flat * n + c
+        return self.devices[flat]
 
 
 def local_device_count(device_type: str) -> int:

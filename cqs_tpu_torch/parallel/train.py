@@ -1,5 +1,5 @@
-"""Contrastive, distillation and cross-encoder training of the port's models
-on one device.
+"""Contrastive, distillation and cross-encoder training of the port's models,
+on one device or over a (dp, tp) mesh.
 
 Port of ``cqs_tpu/parallel/train.py`` (and of the step that
 ``cqs_tpu/cli/commands.py::cmd_train_reranker`` writes inline). The models
@@ -33,9 +33,15 @@ counterpart of the TPU's bf16 (``cmd_train_reranker`` picks the dtype).
 
 The in-batch score products ``q @ p.T`` are f32 matrix products of the
 models' f32 unit vectors; TF32 stays off (PyTorch's default), as the
-reference asks f32 sums. One device, one process: the reference's ``(dp,
-tp)`` mesh is one device here (``dp = tp = 1``); data and tensor
-parallelism come with the port's sharding. Entry points run on ``cuda``
+reference asks f32 sums. The contrastive and distillation trainers take a
+``mesh`` (the reference's ``(dp, tp)`` mesh, ``parallel/mesh.py``): None or
+a (1, 1) mesh runs the one-device step; a larger one places the parameters
+and runs the forward over it in this one process
+(``parallel/tensor_parallel.py``), with ``batch_per_device`` rows on each dp
+row, so the global batch is ``batch_per_device * dp``, and the losses
+contract the whole global batch on device (0, 0), as the reference's
+cross-dp contraction does. :class:`RerankerTrainer` stays on one device, as
+the reference's ``cmd_train_reranker`` does. Entry points run on ``cuda``
 unless the caller asks for the CPU.
 """
 
@@ -54,6 +60,8 @@ from cqs_tpu_torch.models.bert import BertConfig, BertDenseEmbedder, CrossEncode
 from cqs_tpu_torch.models.convert import flax_tree_from_torch, params_from_flax
 from cqs_tpu_torch.models.hybrid import HybridConfig, HybridDenseEmbedder
 from cqs_tpu_torch.models.layers import init_module
+from cqs_tpu_torch.parallel.mesh import Mesh
+from cqs_tpu_torch.parallel.tensor_parallel import TPGrid, to_device
 
 #: the softmax-safe mask of the listwise loss (exp underflows cleanly in f32
 #: and bf16; -1e30 squared inside backward terms overflows)
@@ -104,15 +112,28 @@ def build_model(cfg: TrainConfig, device: torch.device, seed: int) -> torch.nn.M
     return init_module(model, seed).train()
 
 
-def to_device(x, device: torch.device) -> torch.Tensor:
-    """A host array as a tensor on ``device``."""
-    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+def by_device(tensors: list[torch.Tensor]) -> list[list[int]]:
+    """The positions of ``tensors`` grouped by device, in order of first
+    appearance: ``torch._foreach_*`` ops and ``torch.stack`` take one
+    device's tensors at a time."""
+    groups: dict[torch.device, list[int]] = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault(t.device, []).append(i)
+    return list(groups.values())
 
 
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
     """``optax.global_norm``: the square root of the sum of squares of every
-    element, as a 0-d f32 tensor."""
-    return torch.stack(torch._foreach_norm(tensors)).square().sum().sqrt()
+    element, as a 0-d f32 tensor on the first tensor's device. Over several
+    devices each device's sum of squares is added there; every tensor (a
+    shard, or a parameter held once) counts once."""
+    groups = by_device(tensors)
+    if len(groups) == 1:
+        return torch.stack(torch._foreach_norm(tensors)).square().sum().sqrt()
+    first = tensors[0].device
+    sums = [torch.stack(torch._foreach_norm([tensors[i] for i in g])).square().sum().to(first)
+            for g in groups]
+    return torch.stack(sums).sum().sqrt()
 
 
 def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> float:
@@ -121,8 +142,10 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> float:
     the host: one wait for the device a step)."""
     norm = float(global_norm(grads))
     if not norm < max_norm:
-        torch._foreach_div_(grads, norm)
-        torch._foreach_mul_(grads, max_norm)
+        for g in by_device(grads):
+            part = [grads[i] for i in g]
+            torch._foreach_div_(part, norm)
+            torch._foreach_mul_(part, max_norm)
     return norm
 
 
@@ -152,7 +175,8 @@ class AdamW:
     ``optax.clip_by_global_norm(clip_norm)`` when one is given), on the
     parameters' ``grad``, which a step consumes (sets to None). ``lr`` is a
     number or a schedule of the update count. Moments and updates are in the
-    parameters' dtype (f32)."""
+    parameters' dtype (f32), each beside its parameter; parameters on
+    several devices update one device's at a time."""
 
     def __init__(self, params, lr, *, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 1e-4,
@@ -164,6 +188,7 @@ class AdamW:
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
+        self._groups = by_device(self.params)
 
     @torch.no_grad()
     def step(self) -> None:
@@ -173,37 +198,64 @@ class AdamW:
             clip_by_global_norm_(grads, self.clip_norm)
         lr = self.lr(self.count) if callable(self.lr) else self.lr
         self.count += 1
-        b1, b2 = self.b1, self.b2
-        # mu = (1 - b1) g + b1 mu; nu = (1 - b2) g^2 + b2 nu
-        torch._foreach_mul_(self.mu, b1)
-        torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1 - b1))
-        torch._foreach_mul_(self.nu, b2)
-        torch._foreach_add_(self.nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2))
         # bias corrections in f32, as optax computes 1 - decay**count
         one, t = np.float32(1.0), np.float32(self.count)
-        bc1 = float(one - np.float32(b1) ** t)
-        bc2 = float(one - np.float32(b2) ** t)
-        upd = torch._foreach_div(self.mu, bc1)
-        den = torch._foreach_div(self.nu, bc2)
+        bc1 = float(one - np.float32(self.b1) ** t)
+        bc2 = float(one - np.float32(self.b2) ** t)
+        for g in self._groups:
+            self._update(*([x[i] for i in g] for x in (self.params, grads, self.mu, self.nu)),
+                         lr, bc1, bc2)
+        for p in self.params:
+            p.grad = None
+
+    def _update(self, params, grads, mu, nu, lr: float, bc1: float, bc2: float) -> None:
+        """One device's update, in place."""
+        b1, b2 = self.b1, self.b2
+        # mu = (1 - b1) g + b1 mu; nu = (1 - b2) g^2 + b2 nu
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2))
+        upd = torch._foreach_div(mu, bc1)
+        den = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)
         torch._foreach_div_(upd, den)
-        torch._foreach_add_(upd, torch._foreach_mul(self.params, self.wd))
+        torch._foreach_add_(upd, torch._foreach_mul(params, self.wd))
         torch._foreach_mul_(upd, -lr)
-        torch._foreach_add_(self.params, upd)
-        for p in self.params:
-            p.grad = None
+        torch._foreach_add_(params, upd)
+
+
+def training_device(device, mesh: Mesh | None) -> torch.device:
+    """The device a trainer's loss runs on: ``device`` (default ``cuda``)
+    without a mesh, else the mesh's device (0, 0), after checking that the
+    mesh is a (dp, tp) grid of devices that exist and that ``device``, if
+    given, is that one."""
+    if mesh is None:
+        return resolve_device(device or "cuda")
+    if tuple(mesh.shape) != ("dp", "tp"):
+        raise ValueError(f"a training mesh has axes ('dp', 'tp'), not {tuple(mesh.shape)}")
+    first = [resolve_device(d) for d in mesh.devices][0]
+    if device is not None and resolve_device(device) != first:
+        raise ValueError(f"device {device} is not the mesh's first device {first}")
+    return first
 
 
 class ContrastiveTrainer:
     """InfoNCE (in-batch negatives, optional mined hard negatives) on one
-    device."""
+    device, or over a (dp, tp) ``mesh`` (``parallel/tensor_parallel.py``):
+    the same initial parameters, cut into shards, and the in-batch
+    contraction over the whole global batch."""
 
     def __init__(self, cfg: TrainConfig | None = None, seed: int = 0, *,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device | None = None, mesh: Mesh | None = None):
         self.cfg = cfg or TrainConfig()
-        self.device = resolve_device(device)
+        self.device = training_device(device, mesh)
+        self.mesh = mesh
         self.model = build_model(self.cfg, self.device, seed)
+        #: the parameters placed over the mesh; None on one device (a (1, 1)
+        #: mesh too), where the module itself runs
+        self.grid = TPGrid(self.model, mesh) if mesh is not None and mesh.size > 1 else None
         frozen = self.cfg.family == "hybrid" and self.cfg.freeze_scales
         if frozen:
             self.model.scales.requires_grad_(False)
@@ -212,13 +264,18 @@ class ContrastiveTrainer:
 
     @property
     def global_batch(self) -> int:
-        return self.cfg.batch_per_device
+        """``batch_per_device`` rows on each dp row of the mesh."""
+        return self.cfg.batch_per_device * (self.mesh.shape["dp"] if self.mesh else 1)
 
     def trainable(self) -> list[torch.nn.Parameter]:
-        return [p for p in self.model.parameters() if p.requires_grad]
+        params = self.model.parameters() if self.grid is None else self.grid.parameters()
+        return [p for p in params if p.requires_grad]
 
     def embed(self, ids, mask) -> torch.Tensor:
-        """The model's f32 unit vectors of host ``[B, L]`` ids and mask."""
+        """The model's f32 unit vectors of host ``[B, L]`` ids and mask, on
+        the trainer's device (on a grid, the rows over dp, gathered)."""
+        if self.grid is not None:
+            return self.grid.embed(ids, mask)
         return self.model(to_device(ids, self.device).long(),
                           to_device(mask, self.device)).float()
 
@@ -253,13 +310,40 @@ class ContrastiveTrainer:
                    ) -> tuple[float, float]:
         return self._step(self.loss, q_ids, q_mask, p_ids, p_mask, n_ids, n_mask)
 
+    def jitted_step(self):
+        """(fn, example_args), as the reference's ``jitted_step``: a call
+        ``fn(*example_args)`` runs one in-batch step on a global batch drawn
+        from ``np.random.default_rng(0)`` and returns (the trainable
+        parameters, the optimizer, loss, acc), the loss and acc as device
+        scalars. Nothing is compiled: the step runs eagerly."""
+        c = self.cfg
+        rng = np.random.default_rng(0)
+        ids = rng.integers(4, c.vocab_size, size=(self.global_batch, c.seq_len)).astype(np.int32)
+        mask = np.ones_like(ids)
+
+        def step(q_ids, q_mask, p_ids, p_mask):
+            loss, acc = self.loss(q_ids, q_mask, p_ids, p_mask)
+            loss.backward()
+            self.opt.step()
+            return self.trainable(), self.opt, loss.detach(), acc
+
+        return step, (ids, mask, ids, mask)
+
+    def state_dict(self) -> dict[str, torch.Tensor]:
+        """The whole model's ``state_dict`` (a grid's shards gathered)."""
+        return self.model.state_dict() if self.grid is None else self.grid.state_dict()
+
     def params_tree(self) -> dict:
         """The parameters as the reference's Flax tree of numpy arrays
-        (``params.pkl``, the native checkpoint)."""
-        return flax_tree_from_torch(self.model.state_dict(), self.cfg.bert())
+        (``params.pkl``, the native checkpoint), the same on a grid."""
+        return flax_tree_from_torch(self.state_dict(), self.cfg.bert())
 
     def load_params_tree(self, tree) -> None:
-        """Parameters from a Flax tree (either package's ``params.pkl``)."""
+        """Parameters from a Flax tree (either package's ``params.pkl``),
+        cut into the grid's shards on a grid."""
+        if self.grid is not None:
+            self.grid.load_state_dict(params_from_flax(tree))
+            return
         with torch.no_grad():
             self.model.load_state_dict(params_from_flax(tree))
 
@@ -303,12 +387,16 @@ class DistillTrainer(ContrastiveTrainer):
     is (query, K candidate chunks, teacher scores); the student minimizes
     :func:`listwise_kl`. Every parameter trains (the hybrid's scales too),
     behind ``clip_by_global_norm(1.0)``: the masked softmax gives occasional
-    large gradients."""
+    large gradients. On a grid, ``d_ids`` splits over dp with the queries
+    (row r takes their candidates), and the teacher scores and lanes go whole
+    to device (0, 0), where :func:`listwise_kl` runs over all B*K documents
+    of the global batch."""
 
     def __init__(self, cfg: TrainConfig | None = None, seed: int = 0,
-                 teacher_temp: float = 0.05, *, device: str | torch.device = "cuda"):
+                 teacher_temp: float = 0.05, *, device: str | torch.device | None = None,
+                 mesh: Mesh | None = None):
         self.teacher_temp = teacher_temp
-        super().__init__(cfg, seed, device=device)
+        super().__init__(cfg, seed, device=device, mesh=mesh)
         for p in self.model.parameters():
             p.requires_grad_(True)
         self.opt = AdamW(self.trainable(), self.cfg.lr, clip_norm=1.0)

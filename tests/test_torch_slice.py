@@ -223,6 +223,13 @@ def test_no_jax_subprocess(tmp_project, block_jax):
         root = {str(tmp_project)!r}
         assert main(["index", "--path", root, "--device", "cpu"]) == 0
         assert main(["validate token", "--path", root, "--device", "cpu", "--json"]) == 0
+        # one step of the (dp, tp) training grid on logical CPU devices
+        from cqs_tpu_torch.parallel import make_2d_mesh
+        from cqs_tpu_torch.parallel.train import ContrastiveTrainer, TrainConfig
+        cfg = TrainConfig(vocab_size=256, hidden_size=32, num_layers=1, num_heads=4,
+                          intermediate_size=64, seq_len=8, batch_per_device=2)
+        fn, example = ContrastiveTrainer(cfg, mesh=make_2d_mesh(4, dp=2, device="cpu")).jitted_step()
+        assert len(fn(*example)) == 4
         loaded = [m for m, v in sys.modules.items() if v is not None
                   and m.split(".")[0] in ("cqs_tpu", "jax", "jaxlib", "flax", "optax")]
         assert not loaded, loaded

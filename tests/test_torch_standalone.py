@@ -250,7 +250,8 @@ MODEL_SOURCES = ("models/__init__.py", "models/bert.py", "models/convert.py",
                  "models/embedder.py", "models/gemma.py", "models/hybrid.py",
                  "models/layers.py", "models/loader.py", "models/reranker.py",
                  "models/splade.py", "search/engine.py", "cli/context.py", "cli/commands.py",
-                 "parallel/train.py", "parallel/mesh.py", "parallel/sharded_hybrid.py")
+                 "parallel/train.py", "parallel/mesh.py", "parallel/sharded_hybrid.py",
+                 "parallel/tensor_parallel.py")
 
 
 def imported_roots(source: str) -> set[str]:
@@ -350,6 +351,13 @@ def test_port_runs_alone_from_a_copy(tmp_project, tmp_path):
         os.mkdir(root + "/.cqs-tpu")
         assert main(["index", "--path", root, "--device", "cpu"]) == 0
         assert main(["validate token", "--path", root, "--device", "cpu", "--json"]) == 0
+        # one step of the (dp, tp) training grid on logical CPU devices
+        from cqs_tpu_torch.parallel import make_2d_mesh
+        from cqs_tpu_torch.parallel.train import ContrastiveTrainer, TrainConfig
+        cfg = TrainConfig(vocab_size=256, hidden_size=32, num_layers=1, num_heads=4,
+                          intermediate_size=64, seq_len=8, batch_per_device=2)
+        fn, example = ContrastiveTrainer(cfg, mesh=make_2d_mesh(4, dp=2, device="cpu")).jitted_step()
+        assert len(fn(*example)) == 4
         # the search served through the host mirror, whose native scans the
         # port builds into its own _build/ (where g++ exists)
         from cqs_tpu_torch import native

@@ -248,6 +248,82 @@ def test_checkpoints_and_resume_cross_packages(project, tmp_path):
     assert [json.loads(ln)["step"] for ln in log] == [0, 1]
 
 
+#: (the port's mesh, the reference's ``make_2d_mesh`` arguments over its
+#: virtual CPU devices): the reference's grid on four chips, and dp 2
+GRIDS = [((1, 4), (4,)), ((2, 2), (4, 2))]
+
+
+@pytest.mark.parametrize("shape,jargs", GRIDS, ids=["1x4", "2x2"])
+def test_train_commands_on_a_grid(project, tmp_path, monkeypatch, capsys, shape, jargs):
+    """``train`` and ``train-distill`` with each package's ``make_2d_mesh``
+    giving the same (dp, tp) grid: the same ``mesh`` line, ``--batch``
+    divided by dp (9 rows: 9 at dp 1, 8 at dp 2), the distilled losses from
+    one ``--resume`` checkpoint within the bf16 tolerance (rtol 2e-2, and
+    the reference prints 4 decimals), and each package resumes the other's
+    grid checkpoint with 0 steps and saves it bit for bit."""
+    import cqs_tpu.parallel as jparallel
+    import cqs_tpu_torch.parallel as tparallel
+    from cqs_tpu_torch.parallel.train import DistillTrainer, TrainConfig
+
+    dp, tp = shape
+    monkeypatch.setattr(jparallel, "make_2d_mesh",
+                        lambda *a, **k: jparallel.mesh.make_2d_mesh(*jargs))
+    monkeypatch.setattr(tparallel, "make_2d_mesh", lambda *a, **k: tparallel.mesh.make_2d_mesh(
+        dp * tp, dp=dp, device="cpu"))
+    want_rows = 9 // dp * dp
+
+    def lines(pkg, argv, prefix):
+        capsys.readouterr()
+        assert run(pkg, project, argv) == 0
+        out = [ln.strip() for ln in capsys.readouterr().out.splitlines()]
+        return [ln for ln in out if ln.startswith(prefix)]
+
+    pairs = tmp_path / "pairs.jsonl"
+    synthetic_pairs(pairs)
+    said = {pkg: lines(pkg, ["train", str(pairs), "--steps", "1", "--batch", "9", "--seq-len",
+                             "16", *TINY, "--out", str(tmp_path / f"{pkg}_ck")], "training on")
+            for pkg in ("ref", "port")}
+    assert said["port"] == said["ref"] == [
+        f"training on 12 pairs, global batch {want_rows}, mesh {{'dp': {dp}, 'tp': {tp}}}"]
+    mined = tmp_path / "mined.jsonl"
+    assert run("port", project, ["train-data", "--source", "store", "--max", "40",
+                                 "--out", str(mined)]) == 0
+    labels, pool, gate = tmp_path / "labels.jsonl", tmp_path / "pool.json", tmp_path / "gate.json"
+    write_pool(project, mined, pool, gate)
+    assert run("port", project, ["train-distill", "--labels-only", "--pool", str(pool),
+                                 "-k", "8", "--labels", str(labels)]) == 0
+    # one initial checkpoint for both packages, at the command's widths
+    init = DistillTrainer(TrainConfig(hidden_size=32, num_layers=1, intermediate_size=64,
+                                      seq_len=16), seed=4, device="cpu").params_tree()
+    losses, head = {}, f"batch {4 // dp * dp} x K=4, mesh {{'dp': {dp}, 'tp': {tp}}}"
+    for pkg in ("ref", "port"):
+        out = tmp_path / f"{pkg}_distilled"
+        out.mkdir()
+        with open(out / "params.pkl", "wb") as f:
+            pickle.dump(init, f)
+        said = lines(pkg, ["train-distill", "--labels", str(labels), *distill_args(2),
+                           "--resume", "--out", str(out)], "")
+        assert any(ln.startswith("distilling on") and ln.endswith(head) for ln in said), said
+        losses[pkg] = [float(ln.split()[3]) for ln in said if ln.startswith("step")]
+    port_log = [json.loads(ln)["loss"] for ln in (tmp_path / "port_distilled" / "train_log.jsonl")
+                .read_text().splitlines()]
+    assert len(port_log) == len(losses["ref"]) == 2 and all(np.isfinite(port_log))
+    np.testing.assert_allclose(port_log, losses["ref"], rtol=2e-2, atol=1e-4)
+    assert [round(x, 4) for x in port_log] == pytest.approx(losses["port"], abs=1e-4)
+    for src, dst in (("ref", "port"), ("port", "ref")):
+        resumed = tmp_path / f"{src}_resumed_by_{dst}"
+        resumed.mkdir()
+        shutil.copy(tmp_path / f"{src}_distilled" / "params.pkl", resumed / "params.pkl")
+        assert run(dst, project, ["train-distill", "--labels", str(labels), *distill_args(0),
+                                  "--resume", "--out", str(resumed)]) == 0
+        with open(tmp_path / f"{src}_distilled" / "params.pkl", "rb") as f:
+            a = _flatten(pickle.load(f))
+        with open(resumed / "params.pkl", "rb") as f:
+            b = _flatten(pickle.load(f))
+        assert a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a), src
+        assert not all(np.array_equal(a[k], _flatten(init)[k]) for k in a)
+
+
 def test_export_model_and_train_centroids_run(project, tmp_path):
     for pkg in ("ref", "port"):
         assert run(pkg, project, ["export-model", "--out", str(tmp_path / pkg)]) == 0
