@@ -35,7 +35,7 @@ from cqs_tpu_torch.config import limits as default_limits
 from cqs_tpu_torch.models.registry import ModelPreset, get_preset
 from cqs_tpu_torch.models.tokenizer import TOKENIZER_VERSION, BaseTokenizer, load_tokenizer, pick_bucket
 from cqs_tpu_torch.utils.hashing import content_hash
-from cqs_tpu_torch.utils.trace import span
+from cqs_tpu_torch.utils.trace import recorder, span
 from cqs_tpu_torch.device import resolve_device
 from cqs_tpu_torch.models.hash_table import normal_table
 
@@ -268,26 +268,36 @@ class Embedder:
         so the same masked sums)."""
         if not texts:
             return np.zeros((0, self.dim), dtype=np.float32)
-        encs = [self.tokenizer.encode(prefix + t, self.max_seq_len) for t in texts]
-        out = np.zeros((len(texts), self.dim), dtype=np.float32)
-        by_bucket: dict[int, list[int]] = {}
-        for i, e in enumerate(encs):
-            by_bucket.setdefault(pick_bucket(int(e.mask.sum()), self.buckets), []).append(i)
-        for bucket, idxs in sorted(by_bucket.items()):
-            max_bsz = self.preset.batch_size(bucket)
-            bsz = next((r for r in (8, 32, 128) if len(idxs) <= r <= max_bsz), max_bsz)
-            with span("embed_bucket", bucket=bucket, n=len(idxs)):
-                for s in range(0, len(idxs), bsz):
-                    batch = idxs[s: s + bsz]
-                    ids = np.stack([encs[i].ids[:bucket] for i in batch])
-                    mask = np.stack([encs[i].mask[:bucket] for i in batch])
-                    pad = bsz - len(batch)
-                    if pad > 0:
-                        ids = np.concatenate([ids, np.zeros((pad, bucket), np.int32)])
-                        mask = np.concatenate([mask, np.zeros((pad, bucket), np.int32)])
-                        mask[len(batch):, 0] = 1
-                    out[batch] = self._forward(ids, mask)[: len(batch)]
-        return out
+        with span("embed_texts", n=len(texts)):
+            with span("tokenize"):
+                encs = [self.tokenizer.encode(prefix + t, self.max_seq_len) for t in texts]
+                lengths = [int(e.mask.sum()) for e in encs]
+                by_bucket: dict[int, list[int]] = {}
+                for i, n in enumerate(lengths):
+                    by_bucket.setdefault(pick_bucket(n, self.buckets), []).append(i)
+            out = np.zeros((len(texts), self.dim), dtype=np.float32)
+            rec = recorder()
+            for bucket, idxs in sorted(by_bucket.items()):
+                max_bsz = self.preset.batch_size(bucket)
+                bsz = next((r for r in (8, 32, 128) if len(idxs) <= r <= max_bsz), max_bsz)
+                with span("embed_bucket", bucket=bucket, n=len(idxs)):
+                    for s in range(0, len(idxs), bsz):
+                        batch = idxs[s: s + bsz]
+                        ids = np.stack([encs[i].ids[:bucket] for i in batch])
+                        mask = np.stack([encs[i].mask[:bucket] for i in batch])
+                        pad = bsz - len(batch)
+                        if pad > 0:
+                            ids = np.concatenate([ids, np.zeros((pad, bucket), np.int32)])
+                            mask = np.concatenate([mask, np.zeros((pad, bucket), np.int32)])
+                            mask[len(batch):, 0] = 1
+                        if rec is not None:
+                            # a pad row's forced first position is padding
+                            rec.count("embed.positions", mask.size)
+                            rec.count("embed.real_positions",
+                                      sum(min(lengths[i], bucket) for i in batch))
+                        with span("forward"):
+                            out[batch] = self._forward(ids, mask)[: len(batch)]
+            return out
 
     # -- windowing (long inputs) ------------------------------------------
 

@@ -62,6 +62,7 @@ from cqs_tpu_torch.models.hybrid import HybridConfig, HybridDenseEmbedder
 from cqs_tpu_torch.models.layers import init_module
 from cqs_tpu_torch.parallel.mesh import Mesh
 from cqs_tpu_torch.parallel.tensor_parallel import TPGrid, to_device
+from cqs_tpu_torch.utils.trace import recorder, span
 
 #: the softmax-safe mask of the listwise loss (exp underflows cleanly in f32
 #: and bf16; -1e30 squared inside backward terms overflows)
@@ -274,6 +275,10 @@ class ContrastiveTrainer:
     def embed(self, ids, mask) -> torch.Tensor:
         """The model's f32 unit vectors of host ``[B, L]`` ids and mask, on
         the trainer's device (on a grid, the rows over dp, gathered)."""
+        rec = recorder()
+        if rec is not None:
+            rec.count("train.positions", int(np.size(mask)))
+            rec.count("train.real_positions", int(np.sum(mask)))
         if self.grid is not None:
             return self.grid.embed(ids, mask)
         return self.model(to_device(ids, self.device).long(),
@@ -301,10 +306,16 @@ class ContrastiveTrainer:
         return loss, acc
 
     def _step(self, loss_fn, *batch) -> tuple[float, float]:
-        loss, metric = loss_fn(*batch)
-        loss.backward()
-        self.opt.step()
-        return float(loss.detach()), float(metric)
+        with span("train_step"):
+            with span("train_forward"):
+                loss, metric = loss_fn(*batch)
+            with span("train_backward"):
+                loss.backward()
+            with span("train_optimizer"):
+                self.opt.step()
+            # the host waits here for the device to finish the step
+            with span("train_loss_read"):
+                return float(loss.detach()), float(metric)
 
     def train_step(self, q_ids, q_mask, p_ids, p_mask, n_ids=None, n_mask=None
                    ) -> tuple[float, float]:

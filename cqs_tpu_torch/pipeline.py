@@ -23,7 +23,7 @@ from cqs_tpu_torch.nl import CallContext, compute_callee_doc_freq, generate_nl, 
 from cqs_tpu_torch.parser import Chunk, ChunkType, parse_file
 from cqs_tpu_torch.store import EmbeddingCache, Store
 from cqs_tpu_torch.utils.hashing import content_hash, fingerprint_file
-from cqs_tpu_torch.utils.trace import get_tracer, span
+from cqs_tpu_torch.utils.trace import count, get_tracer, span
 from cqs_tpu_torch.utils.walk import enumerate_files
 from cqs_tpu_torch.models import Embedder, SpladeEncoder
 
@@ -91,109 +91,111 @@ def run_index_pipeline(root: str | Path, store: Store, embedder: Embedder,
                        force: bool = False,
                        with_enrichment: bool = True,
                        progress=None) -> IndexStats:
-    t0 = time.time()
-    root = Path(root)
-    lim = config.limits if config else default_limits
-    stats = IndexStats()
-    cache = EmbeddingCache(store.path.parent / "embeddings_cache.db")
+    with span("index_pipeline"):
+        t0 = time.time()
+        root = Path(root)
+        lim = config.limits if config else default_limits
+        stats = IndexStats()
+        cache = EmbeddingCache(store.path.parent / "embeddings_cache.db")
 
-    # Model-drift requeue: embeddings stored under a different embedder
-    # fingerprint are STALE DATA, not just a stale index — rebuild-from-store
-    # would faithfully rebuild garbage. Requeue every chunk for re-embed
-    # (weights swap, tokenizer version bump, model change all land here).
-    prev_fp = store.get_meta("embedder_fingerprint")
-    if prev_fp and prev_fp != embedder.fingerprint:
-        log.info("embedder fingerprint drift (%s -> %s): requeuing all embeddings",
-                 prev_fp[:24], embedder.fingerprint[:24])
-        with store.write_txn() as db:
-            db.execute("UPDATE chunks SET needs_embedding = 1, enrichment_hash = NULL")
-    if splade is not None:
-        prev_sp = store.get_meta("splade_fingerprint")
-        if prev_sp and prev_sp != splade.fingerprint:
-            log.info("splade fingerprint drift: re-encoding sparse vectors")
+        # Model-drift requeue: embeddings stored under a different embedder
+        # fingerprint are STALE DATA, not just a stale index — rebuild-from-store
+        # would faithfully rebuild garbage. Requeue every chunk for re-embed
+        # (weights swap, tokenizer version bump, model change all land here).
+        prev_fp = store.get_meta("embedder_fingerprint")
+        if prev_fp and prev_fp != embedder.fingerprint:
+            log.info("embedder fingerprint drift (%s -> %s): requeuing all embeddings",
+                     prev_fp[:24], embedder.fingerprint[:24])
             with store.write_txn() as db:
-                db.execute("DELETE FROM sparse_vectors")
+                db.execute("UPDATE chunks SET needs_embedding = 1, enrichment_hash = NULL")
+        if splade is not None:
+            prev_sp = store.get_meta("splade_fingerprint")
+            if prev_sp and prev_sp != splade.fingerprint:
+                log.info("splade fingerprint drift: re-encoding sparse vectors")
+                with store.write_txn() as db:
+                    db.execute("DELETE FROM sparse_vectors")
 
-    # Record the embedder identity so later opens (cross-project search,
-    # daemon restarts) reuse the model this index was built with.
-    store.set_meta("embedder_model", embedder.preset.name)
-    store.set_meta("embedder_dim", str(embedder.dim))
-    store.set_meta("embedder_fingerprint", embedder.fingerprint)
-    if splade is not None:
-        store.set_meta("splade_model", splade.preset.name)
-        store.set_meta("splade_fingerprint", splade.fingerprint)
+        # Record the embedder identity so later opens (cross-project search,
+        # daemon restarts) reuse the model this index was built with.
+        store.set_meta("embedder_model", embedder.preset.name)
+        store.set_meta("embedder_dim", str(embedder.dim))
+        store.set_meta("embedder_fingerprint", embedder.fingerprint)
+        if splade is not None:
+            store.set_meta("splade_model", splade.preset.name)
+            store.set_meta("splade_fingerprint", splade.fingerprint)
 
-    # -- stage 1: enumerate + staleness pre-filter -------------------------
-    registered = store.registered_origins()
-    drifted = set(store.stale_parser_origins())   # parser-version requeue
-    seen_origins: set[str] = set()
-    to_parse: list[Path] = []
-    with span("enumerate"):
-        for f in enumerate_files(root, lim, extra_ignore=config.ignore if config else None):
-            origin = str(f.relative_to(root))
-            seen_origins.add(origin)
-            stats.files_seen += 1
-            if not force and origin not in drifted:
-                fp = registered.get(origin)
-                if fp is not None:
-                    try:
-                        if fp.matches_stat(os.stat(f)):
-                            stats.files_skipped += 1
-                            continue
-                        if fp.digest == fingerprint_file(f).digest:
-                            stats.files_skipped += 1
-                            continue
-                    except OSError:
-                        pass
-            to_parse.append(f)
+        # -- stage 1: enumerate + staleness pre-filter -------------------------
+        registered = store.registered_origins()
+        drifted = set(store.stale_parser_origins())   # parser-version requeue
+        seen_origins: set[str] = set()
+        to_parse: list[Path] = []
+        with span("enumerate"):
+            for f in enumerate_files(root, lim, extra_ignore=config.ignore if config else None):
+                origin = str(f.relative_to(root))
+                seen_origins.add(origin)
+                stats.files_seen += 1
+                if not force and origin not in drifted:
+                    fp = registered.get(origin)
+                    if fp is not None:
+                        try:
+                            if fp.matches_stat(os.stat(f)):
+                                stats.files_skipped += 1
+                                continue
+                            if fp.digest == fingerprint_file(f).digest:
+                                stats.files_skipped += 1
+                                continue
+                        except OSError:
+                            pass
+                to_parse.append(f)
 
-    # removed files
-    for origin in set(registered) - seen_origins:
-        store.remove_origin(origin)
-        stats.files_removed += 1
+        # removed files
+        with span("remove"):
+            for origin in set(registered) - seen_origins:
+                store.remove_origin(origin)
+                stats.files_removed += 1
 
-    # -- stage 2: parse (host thread fan-out) ------------------------------
-    results = []
-    with span("parse", files=len(to_parse)):
-        with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
-            futs = {pool.submit(parse_file, f, root, lim): f for f in to_parse}
-            for fut in concurrent.futures.as_completed(futs):
-                r = fut.result()
-                f = futs[fut]
-                if r is None:
-                    continue
-                results.append((f, r))
-    results.sort(key=lambda fr: str(fr[0]))
+        # -- stage 2: parse (host thread fan-out) ------------------------------
+        results = []
+        with span("parse", files=len(to_parse)):
+            with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
+                futs = {pool.submit(parse_file, f, root, lim): f for f in to_parse}
+                for fut in concurrent.futures.as_completed(futs):
+                    r = fut.result()
+                    f = futs[fut]
+                    if r is None:
+                        continue
+                    results.append((f, r))
+        results.sort(key=lambda fr: str(fr[0]))
 
-    # -- stage 3: windowing + NL + upsert ----------------------------------
-    with span("upsert"):
-        for f, r in results:
-            stats.files_parsed += 1
-            if r.errors:
-                stats.parse_errors += len(r.errors)
-            chunks = apply_windowing(r.chunks, embedder, lim)
-            nls = [generate_nl(c, embedder.max_seq_len) for c in chunks]
-            keep = {c.id for c in chunks}
-            stats.chunks_deleted += store.delete_chunks_for_origin(r.origin, keep_ids=keep)
-            store.upsert_chunks(chunks, nls=nls, nls_base=nls)
-            stats.chunks_upserted += len(chunks)
-            store.put_fingerprint(r.origin, fingerprint_file(f), len(chunks), r.errors or None)
-            if progress:
-                progress(stats)
+        # -- stage 3: windowing + NL + upsert ----------------------------------
+        with span("upsert"):
+            for f, r in results:
+                stats.files_parsed += 1
+                if r.errors:
+                    stats.parse_errors += len(r.errors)
+                chunks = apply_windowing(r.chunks, embedder, lim)
+                nls = [generate_nl(c, embedder.max_seq_len) for c in chunks]
+                keep = {c.id for c in chunks}
+                stats.chunks_deleted += store.delete_chunks_for_origin(r.origin, keep_ids=keep)
+                store.upsert_chunks(chunks, nls=nls, nls_base=nls)
+                stats.chunks_upserted += len(chunks)
+                store.put_fingerprint(r.origin, fingerprint_file(f), len(chunks), r.errors or None)
+                if progress:
+                    progress(stats)
 
-    # -- stage 4: embed (device hot loop, canonical-hash reuse) ------------
-    _embed_pending(store, embedder, cache, stats)
+        # -- stage 4: embed (device hot loop, canonical-hash reuse) ------------
+        _embed_pending(store, embedder, cache, stats)
 
-    # -- stage 5: enrichment pass (call-graph context -> re-embed) ---------
-    if with_enrichment:
-        run_enrichment_pass(store, embedder, stats=stats, lim=lim)
+        # -- stage 5: enrichment pass (call-graph context -> re-embed) ---------
+        if with_enrichment:
+            run_enrichment_pass(store, embedder, stats=stats, lim=lim)
 
-    # -- stage 6: SPLADE sparse vectors ------------------------------------
-    if splade is not None and not lim.disable_splade:
-        _encode_sparse(store, splade, stats)
+        # -- stage 6: SPLADE sparse vectors ------------------------------------
+        if splade is not None and not lim.disable_splade:
+            _encode_sparse(store, splade, stats)
 
-    stats.elapsed_s = time.time() - t0
-    return stats
+        stats.elapsed_s = time.time() - t0
+        return stats
 
 
 def _embed_pending(store: Store, embedder: Embedder, cache: EmbeddingCache,
@@ -253,67 +255,73 @@ def run_enrichment_pass(store: Store, embedder: Embedder,
     if "callgraph" in skipped:
         return 0
 
-    # caller adjacency: callee_name -> caller chunk names
-    callers_of: dict[str, list[str]] = {}
-    callees_of: dict[str, list[str]] = {}
-    for caller_id, callee_name, in store.db.execute(
-            "SELECT caller_id, callee_name FROM function_calls"):
-        callees_of.setdefault(caller_id, []).append(callee_name)
-    name_of: dict[str, str] = {}
-    ids_by_name: dict[str, list[str]] = {}
-    for cid, name in store.db.execute("SELECT id, name FROM chunks"):
-        name_of[cid] = name
-        ids_by_name.setdefault(name, []).append(cid)
-    for caller_id, callees in callees_of.items():
-        caller_name = name_of.get(caller_id, "")
-        for callee in callees:
-            for target in ids_by_name.get(callee, []):
-                callers_of.setdefault(target, []).append(caller_name)
+    with span("enrich"):
+        with span("enrich_graph"):
+            # caller adjacency: callee_name -> caller chunk names
+            callers_of: dict[str, list[str]] = {}
+            callees_of: dict[str, list[str]] = {}
+            for caller_id, callee_name, in store.db.execute(
+                    "SELECT caller_id, callee_name FROM function_calls"):
+                callees_of.setdefault(caller_id, []).append(callee_name)
+            name_of: dict[str, str] = {}
+            ids_by_name: dict[str, list[str]] = {}
+            for cid, name in store.db.execute("SELECT id, name FROM chunks"):
+                name_of[cid] = name
+                ids_by_name.setdefault(name, []).append(cid)
+            for caller_id, callees in callees_of.items():
+                caller_name = name_of.get(caller_id, "")
+                for callee in callees:
+                    for target in ids_by_name.get(callee, []):
+                        callers_of.setdefault(target, []).append(caller_name)
 
-    df = compute_callee_doc_freq(list(callees_of.values()))
-    summaries = store.get_summaries()
+            df = compute_callee_doc_freq(list(callees_of.values()))
+            summaries = store.get_summaries()
 
-    to_embed_ids: list[str] = []
-    to_embed_nl: list[str] = []
-    with span("enrich_nl"):
-        with store.write_txn() as db:
-            rows = list(db.execute(
-                "SELECT id, origin, name, parent_name, chunk_type, language, line_start, "
-                "line_end, signature, doc, body, return_type, is_test, enrichment_hash "
-                "FROM chunks WHERE embedding IS NOT NULL"))
-            for (cid, origin, name, parent_name, ctype, language, ls, le, sig, doc,
-                 body, ret, is_test, old_hash) in rows:
-                ctx = CallContext(
-                    callers=sorted(set(callers_of.get(cid, [])))[: lim.nl_max_callers * 2],
-                    callees=list(dict.fromkeys(callees_of.get(cid, []))))
-                if not ctx.callers and not ctx.callees and cid not in summaries:
-                    continue
-                chunk = Chunk(origin=origin, name=name, chunk_type=ChunkType(ctype),
-                              language=language, line_start=ls, line_end=le, body=body,
-                              signature=sig, doc=doc, parent_name=parent_name,
-                              return_type=ret, is_test=bool(is_test))
-                summary, hyde = summaries.get(cid, (None, None))
-                nl = generate_nl_enriched(chunk, ctx, callee_doc_freq=df,
-                                          summary=summary, hyde=hyde,
-                                          max_seq_len=embedder.max_seq_len, lim=lim)
-                h = content_hash(nl)
-                if h == old_hash:
-                    continue
-                db.execute("UPDATE chunks SET nl = ?, enrichment_hash = ? WHERE id = ?",
-                           (nl, h, cid))
-                to_embed_ids.append(cid)
-                to_embed_nl.append(nl)
-
-    with span("enrich_embed", n=len(to_embed_ids)):
-        B = 512
-        for s in range(0, len(to_embed_ids), B):
-            ids = to_embed_ids[s : s + B]
-            vecs = embedder.embed_documents(to_embed_nl[s : s + B])
+        to_embed_ids: list[str] = []
+        to_embed_nl: list[str] = []
+        rebuilt = 0
+        with span("enrich_nl"):
             with store.write_txn() as db:
-                for i, cid in enumerate(ids):
-                    db.execute("UPDATE chunks SET embedding = ? WHERE id = ?",
-                               (np.asarray(vecs[i], dtype="<f4").tobytes(), cid))
-            stats.enriched += len(ids)
+                rows = list(db.execute(
+                    "SELECT id, origin, name, parent_name, chunk_type, language, line_start, "
+                    "line_end, signature, doc, body, return_type, is_test, enrichment_hash "
+                    "FROM chunks WHERE embedding IS NOT NULL"))
+                for (cid, origin, name, parent_name, ctype, language, ls, le, sig, doc,
+                     body, ret, is_test, old_hash) in rows:
+                    ctx = CallContext(
+                        callers=sorted(set(callers_of.get(cid, [])))[: lim.nl_max_callers * 2],
+                        callees=list(dict.fromkeys(callees_of.get(cid, []))))
+                    if not ctx.callers and not ctx.callees and cid not in summaries:
+                        continue
+                    rebuilt += 1
+                    chunk = Chunk(origin=origin, name=name, chunk_type=ChunkType(ctype),
+                                  language=language, line_start=ls, line_end=le, body=body,
+                                  signature=sig, doc=doc, parent_name=parent_name,
+                                  return_type=ret, is_test=bool(is_test))
+                    summary, hyde = summaries.get(cid, (None, None))
+                    nl = generate_nl_enriched(chunk, ctx, callee_doc_freq=df,
+                                              summary=summary, hyde=hyde,
+                                              max_seq_len=embedder.max_seq_len, lim=lim)
+                    h = content_hash(nl)
+                    if h == old_hash:
+                        continue
+                    db.execute("UPDATE chunks SET nl = ?, enrichment_hash = ? WHERE id = ?",
+                               (nl, h, cid))
+                    to_embed_ids.append(cid)
+                    to_embed_nl.append(nl)
+        count("enrich.rebuilt", rebuilt)
+
+        with span("enrich_embed", n=len(to_embed_ids)):
+            B = 512
+            for s in range(0, len(to_embed_ids), B):
+                ids = to_embed_ids[s : s + B]
+                vecs = embedder.embed_documents(to_embed_nl[s : s + B])
+                with store.write_txn() as db:
+                    for i, cid in enumerate(ids):
+                        db.execute("UPDATE chunks SET embedding = ? WHERE id = ?",
+                                   (np.asarray(vecs[i], dtype="<f4").tobytes(), cid))
+                stats.enriched += len(ids)
+                count("enrich.reembedded", len(ids))
     return stats.enriched
 
 

@@ -47,7 +47,7 @@ PORT = REPO / "cqs_tpu_torch"
 #: Host modules the port keeps as copies of the reference's, at the same
 #: relative path; only ``cqs_tpu.`` is renamed ``cqs_tpu_torch.`` in them.
 COPIES = (
-    "utils/hashing.py", "utils/text.py", "utils/trace.py", "utils/walk.py", "utils/__init__.py",
+    "utils/hashing.py", "utils/text.py", "utils/walk.py", "utils/__init__.py",
     "config.py", "data/classifier_centroids.v1.json",
     "parser/types.py", "parser/registry.py", "parser/generic.py", "parser/python_ast.py",
     "parser/docs.py", "parser/web.py", "parser/__init__.py",
@@ -91,6 +91,9 @@ PORTED = (
     "index/graph.py", "index/tiered.py", "store/overlay.py", "ops/project2d.py",
     "parallel/__init__.py", "parallel/train.py",
     "parallel/mesh.py", "parallel/sharded_hybrid.py",
+    # the reference's spans and telemetry, plus an in-memory recorder of the
+    # port's spans and counters
+    "utils/trace.py",
 )
 
 #: ``store/store.py``'s difference from its original, all of it (the other
