@@ -7,10 +7,11 @@ Port of ``cqs_tpu/models/embedder.py``. Every family runs:
   (:mod:`cqs_tpu_torch.models.hash_table`) and row-normalized on the device;
   a gather, a masked mean and an L2 norm;
 - ``bert`` (``models/bert.py``), ``hybrid`` (``models/hybrid.py``), ``gemma``
-  and ``qwen3`` (``models/gemma.py``): ``torch.nn.Module``s built on the
-  device, their weights from a native ``cqs_config.json`` checkpoint or a HF
-  safetensors checkpoint (``models/loader.py``). The reference runs bert and
-  hybrid in f32 off the TPU; here they run in f32 unless the device is a
+  and ``qwen3`` (``models/gemma.py``), ``deepseek`` (``models/deepseek.py``,
+  the port's own): ``torch.nn.Module``s built on the device, their weights
+  from a native ``cqs_config.json`` checkpoint or a HF safetensors
+  checkpoint (``models/loader.py``). The reference runs bert and hybrid in
+  f32 off the TPU; here they and deepseek run in f32 unless the device is a
   GPU, where they run in bf16. Gemma and qwen3 keep their config's bf16
   everywhere, as in the reference.
 
@@ -95,8 +96,11 @@ class Embedder:
                 f"a local checkpoint of {self.preset.hf_repo or model}, use the "
                 f"'hash' lexical model, or pass allow_random_weights=True "
                 f"(tests only).")
+        # gemma and qwen3 hash into 32768 ids, as the reference does; bert and
+        # deepseek into their preset's vocabulary
         self.tokenizer: BaseTokenizer = load_tokenizer(
-            self.model_path, vocab_size=self.preset.vocab_size if self.preset.family == "bert" else 32768)
+            self.model_path, vocab_size=self.preset.vocab_size
+            if self.preset.family in ("bert", "deepseek") else 32768)
         # a native checkpoint carries its own sequence length, dim and
         # prefixes, which win over the preset's
         self.max_seq_len = self.preset.max_seq_len
@@ -111,6 +115,11 @@ class Embedder:
                 self._native_dim += int(native.get("hash_dim", 256))
             self.query_prefix = native.get("query_prefix", self.query_prefix)
             self.doc_prefix = native.get("doc_prefix", self.doc_prefix)
+        elif self.preset.family == "deepseek" and self.model_path is not None \
+                and (self.model_path / "config.json").is_file():
+            # the vectors are the checkpoint's hidden states, at its width
+            with open(self.model_path / "config.json") as f:
+                self._native_dim = int(json.load(f)["hidden_size"])
         self.buckets = _buckets_from_limits(self.max_seq_len)
         self._seed = seed
         self._lock = threading.Lock()
@@ -129,6 +138,10 @@ class Embedder:
 
             cfg = GemmaConfig.small_test()
             return cfg.hidden_size if self.preset.family == "qwen3" else cfg.embed_dim
+        if self.preset.family == "deepseek" and self.model_path is None:
+            from cqs_tpu_torch.models.deepseek import DeepseekV2Config
+
+            return DeepseekV2Config.small_test().hidden_size
         return self.preset.dim
 
     @property
@@ -206,6 +219,20 @@ class Embedder:
                 if fam == "qwen3":
                     cfg = cfg.as_qwen3()
             module = build_module(lambda: GemmaEmbedder(cfg), self.device, self._seed)
+        elif fam == "deepseek":
+            from cqs_tpu_torch.models.deepseek import DeepseekEmbedder, DeepseekV2Config
+
+            dtype = compute_dtype(self.device)
+            if self.model_path is not None and (self.model_path / "config.json").is_file():
+                cfg = DeepseekV2Config.from_hf_config(self.model_path, dtype=dtype)
+            else:
+                # random init at full size is pointless: the test geometry
+                cfg = DeepseekV2Config.small_test(vocab_size=self.tokenizer.vocab_size,
+                                                  dtype=dtype)
+            if self.tokenizer.vocab_size > cfg.vocab_size:
+                raise ValueError(f"the tokenizer's {self.tokenizer.vocab_size} ids exceed the "
+                                 f"model's vocabulary of {cfg.vocab_size}")
+            module = build_module(lambda: DeepseekEmbedder(cfg), self.device, self._seed)
         else:
             raise ValueError(f"unknown model family {fam!r}")
         self._maybe_load_weights(module)
@@ -236,8 +263,19 @@ class Embedder:
         ids_t = torch.from_numpy(ids).to(self.device, torch.int64)
         mask_t = torch.from_numpy(mask).to(self.device)
         if isinstance(model, torch.nn.Module):
+            kw = {}
+            if self.preset.family == "deepseek":
+                from cqs_tpu_torch.models.deepseek import real_positions
+
+                # the rows its MLPs take, from the host's mask: no wait on the device
+                kw["real"] = real_positions(mask).to(self.device)
             with torch.inference_mode():
-                return model(ids_t, mask_t).float().cpu().numpy()
+                out = model(ids_t, mask_t, **kw).float().cpu().numpy()
+            # counts a model kept on the device land with its vectors
+            flush = getattr(model, "flush_counters", None)
+            if flush is not None:
+                flush()
+            return out
         m = mask_t.float()[..., None]
         vecs = model[ids_t]                                         # [B, L, D]
         pooled = (vecs * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)

@@ -25,6 +25,8 @@ header (``dtype``, ``shape``, ``data_offsets`` per tensor, optional
 from __future__ import annotations
 
 import json
+import mmap
+import os
 import struct
 from collections.abc import Mapping
 from pathlib import Path
@@ -40,13 +42,16 @@ _NAMES = {v: k for k, v in _DTYPES.items()}
 
 
 def read_safetensors(path: str | Path) -> dict[str, torch.Tensor]:
-    """One ``.safetensors`` file -> ``{name: CPU tensor}``. The tensors share
-    one buffer with the file's bytes (``torch.frombuffer``); a tensor whose
-    offset is not aligned to its element size is copied."""
+    """One ``.safetensors`` file -> ``{name: CPU tensor}``. The tensors are
+    views of one private (copy-on-write) memory map of the file
+    (``torch.frombuffer``), so a tensor's pages are read when first touched
+    and nothing is copied; a tensor whose offset is not aligned to its
+    element size is copied out alone."""
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
-        data = bytearray(f.read())
+        base = 8 + n
+        data = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
     out: dict[str, torch.Tensor] = {}
     for name, info in header.items():
         if name == "__metadata__":
@@ -55,10 +60,11 @@ def read_safetensors(path: str | Path) -> dict[str, torch.Tensor]:
         if dtype is None:
             raise ValueError(f"{path}: tensor {name!r} has unsupported dtype {info['dtype']}")
         start, end = info["data_offsets"]
+        start, end = start + base, end + base
         shape = tuple(info["shape"])
         size = torch.empty((), dtype=dtype).element_size()
         if end - start != size * int(np.prod(shape, dtype=np.int64)) or end > len(data):
-            raise ValueError(f"{path}: tensor {name!r} has offsets {start}-{end} "
+            raise ValueError(f"{path}: tensor {name!r} has offsets {start - base}-{end - base} "
                              f"for {info['dtype']} {list(shape)}")
         if end == start:
             out[name] = torch.empty(shape, dtype=dtype)
@@ -73,7 +79,9 @@ def read_safetensors(path: str | Path) -> dict[str, torch.Tensor]:
 
 def write_safetensors(path: str | Path, tensors: Mapping[str, torch.Tensor]) -> None:
     """``{name: tensor}`` -> one ``.safetensors`` file (tensors in name
-    order, the header padded to 8 bytes)."""
+    order, the header padded to 8 bytes). Written beside ``path`` and
+    renamed over it, so tensors still mapped from the file it replaces
+    (:func:`read_safetensors`) keep their bytes."""
     header: dict = {}
     blobs = []
     offset = 0
@@ -88,12 +96,14 @@ def write_safetensors(path: str | Path, tensors: Mapping[str, torch.Tensor]) -> 
         offset += nbytes
     raw = json.dumps(header, separators=(",", ":")).encode()
     raw += b" " * (-len(raw) % 8)
-    with open(path, "wb") as f:
+    tmp = Path(f"{path}.partial")
+    with open(tmp, "wb") as f:
         f.write(struct.pack("<Q", len(raw)))
         f.write(raw)
         for t in blobs:
             if t.numel():
                 f.write(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    os.replace(tmp, path)
 
 
 def _read_dir(model_dir: Path) -> dict[str, torch.Tensor] | None:
@@ -240,6 +250,69 @@ def _map_gemma(t: dict[str, torch.Tensor], template: Mapping[str, torch.Tensor]
     return new
 
 
+def _map_deepseek(t: dict[str, torch.Tensor], template: Mapping[str, torch.Tensor]
+                  ) -> dict[str, torch.Tensor] | None:
+    """HF ``DeepseekV2`` tensors (``model.`` stripped) -> a
+    ``DeepseekEmbedder`` state dict (``models/deepseek.py``). Each routed
+    expert's ``gate_proj`` and ``up_proj`` rows are stacked into the
+    layer's ``gate_up [E, 2 * I, H]``, its ``down_proj`` into ``down [E, H,
+    I]``. Every tensor of the module must come from the checkpoint at its
+    shape (a model with random layers embeds noise); ``lm_head`` is not
+    read."""
+    if "layers.0.self_attn.kv_a_proj_with_mqa.weight" not in t:
+        return None
+    new: dict[str, torch.Tensor] = {}
+
+    def put(key: str, arr: torch.Tensor) -> None:
+        if key not in template:
+            raise ValueError(f"checkpoint tensor for {key}, which the model lacks")
+        if tuple(arr.shape) != tuple(template[key].shape):
+            raise ValueError(f"shape mismatch for {key}: {tuple(arr.shape)} vs "
+                             f"{tuple(template[key].shape)}")
+        new[key] = arr
+
+    put("tok_embed.weight", t["embed_tokens.weight"])
+    put("final_norm.weight", t["norm.weight"])
+    li = 0
+    while f"layers.{li}.self_attn.kv_a_proj_with_mqa.weight" in t:
+        src, dst = f"layers.{li}.", f"layer_{li}."
+        for hf, ours in (("q_proj", "q"), ("kv_a_proj_with_mqa", "kv_a"),
+                         ("kv_a_layernorm", "kv_norm"), ("kv_b_proj", "kv_b"), ("o_proj", "out")):
+            put(f"{dst}attn.{ours}.weight", t[f"{src}self_attn.{hf}.weight"])
+        put(f"{dst}pre_attn_norm.weight", t[f"{src}input_layernorm.weight"])
+        put(f"{dst}pre_mlp_norm.weight", t[f"{src}post_attention_layernorm.weight"])
+        if f"{src}mlp.gate.weight" in t:
+            m = f"{src}mlp."
+            put(f"{dst}moe.router.weight", t[m + "gate.weight"])
+            n = 0
+            while f"{m}experts.{n}.gate_proj.weight" in t:
+                n += 1
+            g0, d0 = t[f"{m}experts.0.gate_proj.weight"], t[f"{m}experts.0.down_proj.weight"]
+            inter = g0.shape[0]
+            gate_up = torch.empty((n, 2 * inter, g0.shape[1]), dtype=g0.dtype)
+            down = torch.empty((n, *d0.shape), dtype=d0.dtype)
+            for e in range(n):
+                x = f"{m}experts.{e}."
+                gate_up[e, :inter] = t[x + "gate_proj.weight"]
+                gate_up[e, inter:] = t[x + "up_proj.weight"]
+                down[e] = t[x + "down_proj.weight"]
+            put(f"{dst}moe.experts.gate_up", gate_up)
+            put(f"{dst}moe.experts.down", down)
+            for proj in ("gate", "up", "down"):
+                key = f"{m}shared_experts.{proj}_proj.weight"
+                if key in t:
+                    put(f"{dst}moe.shared.{proj}.weight", t[key])
+        else:
+            for proj in ("gate", "up", "down"):
+                put(f"{dst}mlp.{proj}.weight", t[f"{src}mlp.{proj}_proj.weight"])
+        li += 1
+    missing = sorted(set(template) - set(new))
+    if missing:
+        raise ValueError(f"checkpoint lacks tensors for {', '.join(missing[:4])}"
+                         f"{' ...' if len(missing) > 4 else ''} ({len(missing)} in all)")
+    return new
+
+
 def _map_cross_encoder(t: dict[str, torch.Tensor], template: Mapping[str, torch.Tensor]
                        ) -> dict[str, torch.Tensor] | None:
     """HF BertForSequenceClassification -> a ``CrossEncoder`` state dict
@@ -280,6 +353,8 @@ def load_safetensors_params(model_dir: str | Path, template: Mapping[str, torch.
         return _map_bert(tensors, template)
     if family in ("gemma", "qwen3"):
         return _map_gemma(tensors, template)
+    if family == "deepseek":
+        return _map_deepseek(tensors, template)
     return None
 
 
