@@ -16,6 +16,7 @@ per query category.
 
 from __future__ import annotations
 
+import functools
 import re as _re
 from collections import Counter
 from dataclasses import dataclass, field
@@ -251,14 +252,23 @@ def generate_nl(chunk: Chunk, max_seq_len: int = 512,
     return out[:budget]
 
 
+@functools.lru_cache(maxsize=1 << 16)
+def _name_words(name: str) -> str:
+    """A caller's or callee's name as words. Cached: the enrichment pass
+    names the same few hundred functions in every row that calls them."""
+    return " ".join(tokenize_identifier(name))
+
+
 def generate_nl_enriched(
-    chunk: Chunk,
+    chunk: Chunk | None,
     ctx: CallContext,
     callee_doc_freq: dict[str, float] | None = None,
     summary: str | None = None,
     hyde: str | None = None,
     max_seq_len: int = 512,
     lim: Limits | None = None,
+    *,
+    base: str | None = None,
 ) -> str:
     """Enriched NL: base + call-graph context + optional summary/HyDE.
 
@@ -267,22 +277,26 @@ def generate_nl_enriched(
     of chunks are utilities (log/unwrap/format) and filtered out. An LLM
     summary, when present, is PREPENDED for maximum embedding weight; HyDE
     queries are appended (ref: src/nl/mod.rs:44-120).
+
+    ``base``, when non-empty, is the chunk's base NL as ``generate_nl(chunk,
+    max_seq_len)`` gives it (the index pipeline's stored ``nl_base``);
+    ``chunk`` is then not read and may be None.
     """
     lim = lim or default_limits
     skipped = set((lim.disable_enrichment or "").split(","))
-    base = generate_nl(chunk, max_seq_len)
+    base = base or generate_nl(chunk, max_seq_len)
     extras: list[str] = []
     callee_doc_freq = callee_doc_freq or {}
 
     if ctx.callers and "callgraph" not in skipped:
-        words = [" ".join(tokenize_identifier(c)) for c in ctx.callers[: lim.nl_max_callers]]
+        words = [_name_words(c) for c in ctx.callers[: lim.nl_max_callers]]
         words = [w for w in words if w]
         if words:
             extras.append("Called by: " + ", ".join(words))
     if ctx.callees and "callgraph" not in skipped:
         cutoff = lim.callee_df_cutoff
         kept = [c for c in ctx.callees if callee_doc_freq.get(c, 0.0) < cutoff]
-        words = [" ".join(tokenize_identifier(c)) for c in kept[: lim.nl_max_callees]]
+        words = [_name_words(c) for c in kept[: lim.nl_max_callees]]
         words = [w for w in words if w]
         if words:
             extras.append("Calls: " + ", ".join(words))

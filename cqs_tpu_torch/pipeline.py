@@ -20,7 +20,7 @@ import numpy as np
 
 from cqs_tpu_torch.config import Config, Limits, limits as default_limits
 from cqs_tpu_torch.nl import CallContext, compute_callee_doc_freq, generate_nl, generate_nl_enriched
-from cqs_tpu_torch.parser import Chunk, ChunkType, parse_file
+from cqs_tpu_torch.parser import PARSER_VERSION, Chunk, ChunkType, parse_file
 from cqs_tpu_torch.store import EmbeddingCache, Store
 from cqs_tpu_torch.utils.hashing import content_hash, fingerprint_file
 from cqs_tpu_torch.utils.trace import count, get_tracer, span
@@ -28,6 +28,19 @@ from cqs_tpu_torch.utils.walk import enumerate_files
 from cqs_tpu_torch.models import Embedder, SpladeEncoder
 
 log = get_tracer("pipeline")
+
+#: Store meta key: the ``base_nl_key`` under which every row's ``nl_base``
+#: was written, or "" when some row's may not have been.
+NL_BASE_META = "nl_base_key"
+
+
+def base_nl_key(max_seq_len: int) -> str:
+    """What a chunk's base NL (``generate_nl`` at the process-default limits)
+    depends on besides the chunk's stored fields: the budget, the opt-in
+    template layers, and the parser version that shaped the fields. Base NL
+    written under an equal key is the string ``generate_nl`` would give now."""
+    layers = default_limits.nl_extra_layers or ""
+    return f"seq={max_seq_len};layers={layers};parser={PARSER_VERSION}"
 
 
 @dataclass
@@ -123,6 +136,13 @@ def run_index_pipeline(root: str | Path, store: Store, embedder: Embedder,
         if splade is not None:
             store.set_meta("splade_model", splade.preset.name)
             store.set_meta("splade_fingerprint", splade.fingerprint)
+        # The enrichment pass reuses the stored base NL only while every row's
+        # was written under the current key: withdraw the key before any row
+        # is written under another, restore it once every row has been.
+        nl_key = base_nl_key(embedder.max_seq_len)
+        base_current = store.get_meta(NL_BASE_META) == nl_key
+        if not base_current:
+            store.set_meta(NL_BASE_META, "")
 
         # -- stage 1: enumerate + staleness pre-filter -------------------------
         registered = store.registered_origins()
@@ -182,6 +202,10 @@ def run_index_pipeline(root: str | Path, store: Store, embedder: Embedder,
                 store.put_fingerprint(r.origin, fingerprint_file(f), len(chunks), r.errors or None)
                 if progress:
                     progress(stats)
+        if not base_current:
+            written = {r.origin for _, r in results}
+            if all(o in written for o, in store.db.execute("SELECT DISTINCT origin FROM chunks")):
+                store.set_meta(NL_BASE_META, nl_key)
 
         # -- stage 4: embed (device hot loop, canonical-hash reuse) ------------
         _embed_pending(store, embedder, cache, stats)
@@ -279,29 +303,39 @@ def run_enrichment_pass(store: Store, embedder: Embedder,
 
         to_embed_ids: list[str] = []
         to_embed_nl: list[str] = []
-        rebuilt = 0
+        rebuilt = reused = 0
+        # the stored base NL stands for generate_nl(chunk) while its key holds;
+        # then only rows with an empty nl_base need their body read
+        reuse = store.get_meta(NL_BASE_META) == base_nl_key(embedder.max_seq_len)
         with span("enrich_nl"):
             with store.write_txn() as db:
                 rows = list(db.execute(
                     "SELECT id, origin, name, parent_name, chunk_type, language, line_start, "
-                    "line_end, signature, doc, body, return_type, is_test, enrichment_hash "
-                    "FROM chunks WHERE embedding IS NOT NULL"))
+                    "line_end, signature, doc, CASE WHEN ? AND nl_base != '' THEN '' ELSE body "
+                    "END, return_type, is_test, enrichment_hash, nl_base "
+                    "FROM chunks WHERE embedding IS NOT NULL", (int(reuse),)))
                 for (cid, origin, name, parent_name, ctype, language, ls, le, sig, doc,
-                     body, ret, is_test, old_hash) in rows:
+                     body, ret, is_test, old_hash, nl_base) in rows:
                     ctx = CallContext(
                         callers=sorted(set(callers_of.get(cid, [])))[: lim.nl_max_callers * 2],
                         callees=list(dict.fromkeys(callees_of.get(cid, []))))
                     if not ctx.callers and not ctx.callees and cid not in summaries:
                         continue
                     rebuilt += 1
-                    chunk = Chunk(origin=origin, name=name, chunk_type=ChunkType(ctype),
-                                  language=language, line_start=ls, line_end=le, body=body,
-                                  signature=sig, doc=doc, parent_name=parent_name,
-                                  return_type=ret, is_test=bool(is_test))
+                    if reuse and nl_base:
+                        reused += 1
+                        chunk = None
+                    else:
+                        nl_base = None
+                        chunk = Chunk(origin=origin, name=name, chunk_type=ChunkType(ctype),
+                                      language=language, line_start=ls, line_end=le, body=body,
+                                      signature=sig, doc=doc, parent_name=parent_name,
+                                      return_type=ret, is_test=bool(is_test))
                     summary, hyde = summaries.get(cid, (None, None))
                     nl = generate_nl_enriched(chunk, ctx, callee_doc_freq=df,
                                               summary=summary, hyde=hyde,
-                                              max_seq_len=embedder.max_seq_len, lim=lim)
+                                              max_seq_len=embedder.max_seq_len, lim=lim,
+                                              base=nl_base)
                     h = content_hash(nl)
                     if h == old_hash:
                         continue
@@ -310,6 +344,7 @@ def run_enrichment_pass(store: Store, embedder: Embedder,
                     to_embed_ids.append(cid)
                     to_embed_nl.append(nl)
         count("enrich.rebuilt", rebuilt)
+        count("enrich.base_reused", reused)
 
         with span("enrich_embed", n=len(to_embed_ids)):
             B = 512

@@ -97,7 +97,7 @@ PORTED = (
 )
 
 #: ``store/store.py``'s difference from its original, all of it (the other
-#: copies that differ: ``ANALYSIS_READS``, ``PROJECTS_DEVICE``). A worker thread must never read through the home
+#: copies that differ: ``ANALYSIS_READS``, ``PROJECTS_DEVICE``, ``NL_BASE``). A worker thread must never read through the home
 #: connection (two threads running the same SQL text on one connection share
 #: its cached prepared statement, and one thread's step takes the other's
 #: row), so in the port (1) ``Store._read_db`` is the text below: it retries
@@ -188,6 +188,36 @@ PROJECTS_DEVICE = (
 )
 
 
+#: ``nl/__init__.py``'s one allowed difference, line for line: the index
+#: pipeline's enrichment pass hands ``generate_nl_enriched`` the base NL it
+#: stored (keyword-only ``base``; ``chunk`` is then None), and caller and
+#: callee names' words come from a cache (``tests/test_torch_enrich_base.py``).
+NL_BASE = (
+    ("import re as _re\n", "import functools\nimport re as _re\n"),
+    ("def generate_nl_enriched(\n    chunk: Chunk,\n",
+     "@functools.lru_cache(maxsize=1 << 16)\n"
+     "def _name_words(name: str) -> str:\n"
+     '    """A caller\'s or callee\'s name as words. Cached: the enrichment pass\n'
+     '    names the same few hundred functions in every row that calls them."""\n'
+     '    return " ".join(tokenize_identifier(name))\n\n\n'
+     "def generate_nl_enriched(\n    chunk: Chunk | None,\n"),
+    ("    lim: Limits | None = None,\n) -> str:\n    \"\"\"Enriched NL",
+     "    lim: Limits | None = None,\n    *,\n    base: str | None = None,\n) -> str:\n"
+     "    \"\"\"Enriched NL"),
+    ("    queries are appended (ref: src/nl/mod.rs:44-120).\n",
+     "    queries are appended (ref: src/nl/mod.rs:44-120).\n\n"
+     "    ``base``, when non-empty, is the chunk's base NL as ``generate_nl(chunk,\n"
+     "    max_seq_len)`` gives it (the index pipeline's stored ``nl_base``);\n"
+     "    ``chunk`` is then not read and may be None.\n"),
+    ("    base = generate_nl(chunk, max_seq_len)\n",
+     "    base = base or generate_nl(chunk, max_seq_len)\n"),
+    ('[" ".join(tokenize_identifier(c)) for c in ctx.callers',
+     "[_name_words(c) for c in ctx.callers"),
+    ('[" ".join(tokenize_identifier(c)) for c in kept',
+     "[_name_words(c) for c in kept"),
+)
+
+
 def port_copy_text(rel: str, reference: str) -> str:
     """The reference's text of a copy (package already renamed) with the
     port's allowed difference for that copy applied."""
@@ -196,10 +226,11 @@ def port_copy_text(rel: str, reference: str) -> str:
     if rel in ANALYSIS_READS:
         assert re.search(r"\bstore\.db\b", reference), rel
         return re.sub(r"\bstore\.db\b", "store._read_db()", reference)
-    if rel == "store/projects.py":
-        for old, new in PROJECTS_DEVICE:
-            assert reference.count(old) == 1, old
-            reference = reference.replace(old, new)
+    for path, diff in (("store/projects.py", PROJECTS_DEVICE), ("nl/__init__.py", NL_BASE)):
+        if rel == path:
+            for old, new in diff:
+                assert reference.count(old) == 1, old
+                reference = reference.replace(old, new)
     return reference
 
 
